@@ -1,8 +1,8 @@
 """Configuration for the PyTorch port of PhysDock.
 
-The presets, `ModelConfig` and `DataConfig` are the JAX package's
-(`physdock_tpu/config.py`) unchanged, so a checkpoint trained there lines
-up here; `DTypePolicy` names torch dtypes.
+The presets, `ModelConfig`, `DataConfig` and `LossConfig` are the JAX
+package's (`physdock_tpu/config.py`) unchanged, so a checkpoint trained
+there lines up here; `DTypePolicy` names torch dtypes.
 """
 
 from __future__ import annotations
@@ -137,9 +137,40 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights (reference: PhysDock/configs.py:152-193)."""
+
+    alpha_diffusion: float = 4.0
+    alpha_confidence: float = 1e-4
+    alpha_bond: float = 0.0
+    alpha_distogram: float = 3e-2
+    alpha_pae: float = 0.0
+    # weighted MSE
+    alpha_dna: float = 5.0
+    alpha_rna: float = 5.0
+    alpha_ligand: float = 10.0
+    # smooth lDDT
+    max_clamp_distance: float = 15.0
+    # distogram bins
+    distogram_min_bin: float = 3.25
+    distogram_max_bin: float = 50.75
+    distogram_no_bins: int = 39
+    # confidence bins
+    plddt_no_bins: int = 50
+    pde_min_bin: float = 0.0
+    pde_max_bin: float = 32.0
+    pde_no_bins: int = 64
+    pae_min_bin: float = 0.0
+    pae_max_bin: float = 32.0
+    pae_no_bins: int = 64
+    eps: float = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
 class PhysDockConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     dtypes: DTypePolicy = dataclasses.field(default_factory=DTypePolicy)
     inference_mode: bool = True
 

@@ -2,15 +2,20 @@
 //
 //   o[b, h, i, :] = softmax_j(q[b,h,i,:] . k[b,h,j,:] / sqrt(D) + bias[(b*H + h) % lead, i, j]) @ v[b,h,j,:]
 //
-// One kernel serves the four forward Pallas kernels of the JAX package
+// One kernel serves the five forward Pallas kernels of the JAX package
 // (physdock_tpu/ops/flash_attention.py::flash_sdpa,
 //  flash_attention_grouped.py::flash_sdpa_grouped,
 //  flash_attention_folded.py::flash_sdpa_folded,
-//  flash_attention_folded_v3.py::flash_sdpa_folded_v3).  On the TPU they
+//  flash_attention_folded_v3.py::flash_sdpa_folded_v3,
+//  flash_attention_bwd.py::flash_fwd_lse).  On the TPU they
 // differ only in how heads are folded into lanes and how samples are
 // grouped around VMEM; here the split [B, H, S, D] and folded [B, S, H*D]
 // layouts are both just strides, and a bias shared over B is the
 // `(b*H + h) % lead` row-block index (lead = H gives a sample stride of 0).
+// flash_fwd_lse is the same kernel with two more outputs: given `m` and
+// `l` pointers, it stores each query row's fp32 running max and softmax
+// normalizer separately ([B, H, S_q], contiguous), never fused as
+// lse = m + log(l), which loses log(l) below ulp(1e9) on masked rows.
 //
 // Design (simple first): one block of 128 threads per (b, h, 64-row query
 // tile); the keys stream through shared memory in 64-row tiles with an
@@ -57,6 +62,8 @@ struct Params {
   const void* v;
   const void* bias;
   void* o;
+  float* m;  // [B, H, S_q] row max, or null
+  float* l;  // [B, H, S_q] row normalizer, or null
   int64_t q_sb, q_sh, q_ss;
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -211,6 +218,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int dd = 0; dd < DPT; ++dd)
         o[qi * p.o_ss + tx + 16 * dd] = from_f<T>(acc[i][dd] * inv);
+      // every thread of the 16-lane row group holds the same reduced m, l
+      if (p.m != nullptr && tx == 0) {
+        const int64_t row = (static_cast<int64_t>(b) * p.H + h) * p.S_q + qi;
+        p.m[row] = m[i];
+        p.l[row] = l[i];
+      }
     }
   }
 }
@@ -244,19 +257,21 @@ cudaError_t dispatch_d(int d, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements; the
-// last (head-dim / key) axis of every tensor is contiguous.  Returns the
-// cudaError_t of the launch (0 = success).
+// last (head-dim / key) axis of every tensor is contiguous.  `m` and `l`
+// are null (forward only) or fp32 [B, H, S_q] contiguous (forward with
+// stats).  Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(
     int dtype, int bias_dtype, int d,
     const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     const void* k, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     const void* v, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     void* o, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+    float* m, float* l,
     const void* bias, int64_t b_sl, int64_t b_ss, int lead,
     int B, int H, int S_q, int S_k, float scale, void* stream) {
   if (B <= 0 || H <= 0 || S_q <= 0) return 0;
   if (S_k <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, bias, o,
+  Params p{q, k, v, bias, o, m, l,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            b_sl, b_ss, B, H, S_q, S_k, lead, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -62,6 +62,17 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+def arrays_to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Host feature arrays as tensors on `device` (float64 narrowed to fp32)."""
+    out = {}
+    for k, v in arrays.items():
+        a = np.asarray(v)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out[k] = torch.as_tensor(a, device=device)
+    return out
+
+
 class DockingPipeline:
     def __init__(self, config: PhysDockConfig, model: PhysDock, featurizer: SystemFeaturizer,
                  settings: Optional[SamplerSettings] = None, device=None):
@@ -72,13 +83,7 @@ class DockingPipeline:
         self.featurizer = featurizer
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in arrays.items():
-            a = np.asarray(v)
-            if a.dtype == np.float64:
-                a = a.astype(np.float32)
-            out[k] = torch.as_tensor(a, device=self.device)
-        return out
+        return arrays_to_device(arrays, self.device)
 
     def _build_guidance(self, batch, meta):
         """Returns (PhysicsGuidance template, original conformer bank); the

@@ -1,6 +1,11 @@
-"""The PhysDock model for inference: conditioning trunk + AF3DiT denoiser
-(port of `physdock_tpu/model/physdock.py`, inference entry points).
+"""The PhysDock model: conditioning trunk + AF3DiT denoiser + distogram
+head (port of `physdock_tpu/model/physdock.py`).
 
+  * `forward(batch, generator)` -- the training forward: EDM-noise
+    `num_augmentation_sample` augmented copies of x_gt and denoise them all;
+    returns {x_denoised, x_hat, t_hat, p_distogram}
+  * `forward_noised(batch, x_hat, t_hat)` -- the same from given noise (the
+    seam through which tests feed the JAX package's x_hat / t_hat)
   * `conditioning(batch)` -- (a, ap, s, z), once per system and round
   * `denoise_bias_cache(batch, ap, z)` -- per-block DiT biases, once per round
   * `denoise(batch, x_hat, t_hat, a, ap, s, z, bias_cache)` -- one denoiser call
@@ -8,7 +13,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +23,10 @@ from physdock_tpu_torch.model.compact import expand_batch
 from physdock_tpu_torch.nn.conditioning import DiffusionConditioning
 from physdock_tpu_torch.nn.primitives import Linear
 from physdock_tpu_torch.nn.transformers import AF3DiT
+from physdock_tpu_torch.utils.geometry import (
+    apply_centre_augmentation,
+    uniform_random_rotation,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -51,7 +60,7 @@ class PhysDock(nn.Module):
             c.no_blocks_template, c.num_recycles, **skw)
         self.dit = AF3DiT(c.c_a, c.c_ap, c.c_s, c.c_z, c.no_blocks_atom, c.no_blocks_dit,
                           c.sigma_data, **skw)
-        # the distogram head is training-only; kept so checkpoints load whole
+        # the distogram head is training-only (`forward`)
         self.linear_distogram = Linear(c.c_z, c.no_distogram_bins, init="final", dtype=dtype,
                                        generator=generator)
 
@@ -67,3 +76,38 @@ class PhysDock(nn.Module):
     def denoise_bias_cache(self, batch: Batch, ap, z):
         batch = prepare_batch(batch)
         return self.dit.compute_bias_cache(ap, z, batch["ap_mask"], batch["z_mask"])
+
+    def distogram(self, z):
+        p = self.linear_distogram(z).float()
+        return p + p.transpose(-2, -3)
+
+    def augmentation_diffuse(self, batch: Batch, generator: Optional[torch.Generator] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """EDM training noising: sigma ~ exp(N(-1.2, 1.5^2)) * sigma_data over
+        `num_augmentation_sample` SE(3)-augmented copies of x_gt. Every draw
+        comes from `generator` on the CPU and then moves to x_gt's device, so
+        card and CPU runs from one seed see the same x_hat."""
+        n = self.cfg.num_augmentation_sample
+        x_gt = batch["x_gt"]
+        dev = x_gt.device
+        t_hat = torch.exp(torch.randn(n, generator=generator) * 1.5 - 1.2) * self.cfg.sigma_data
+        noise = torch.randn((n,) + tuple(x_gt.shape), generator=generator, dtype=x_gt.dtype)
+        rot = uniform_random_rotation((n,), generator, "cpu")
+        trans = torch.randn((n, 3), generator=generator, dtype=x_gt.dtype)
+        t_hat = t_hat.to(dev)
+        x = x_gt[None] + noise.to(dev) * t_hat[:, None, None]
+        x_hat = apply_centre_augmentation(x, batch["x_exists"], rot.to(dev), trans.to(dev))
+        return x_hat.detach(), t_hat
+
+    def forward_noised(self, batch: Batch, x_hat, t_hat) -> Dict[str, torch.Tensor]:
+        batch = prepare_batch(batch)
+        a, ap, s, z = self.diffusion_conditioning(batch)
+        x_denoised = self.denoise(batch, x_hat, t_hat, a, ap, s, z)
+        return {"x_denoised": x_denoised, "x_hat": x_hat, "t_hat": t_hat,
+                "p_distogram": self.distogram(z)}
+
+    def forward(self, batch: Batch, generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        batch = prepare_batch(batch)
+        x_hat, t_hat = self.augmentation_diffuse(batch, generator)
+        return self.forward_noised(batch, x_hat, t_hat)

@@ -3,7 +3,10 @@ Pairformer, DiT and the AF3DiT diffusion denoiser (port of
 `physdock_tpu/nn/transformers.py`).
 
 Each stack holds its blocks in a `ModuleList` named `blocks`, where the
-JAX package scans one block over stacked parameters.
+JAX package scans one block over stacked parameters.  While autograd
+records, each block runs under activation checkpointing (`run_block`):
+the counterpart of the `nn.remat` on every scanned block there.  The
+backward re-runs the block's forward, attention kernels included.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Dict
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from physdock_tpu_torch.nn.attentions import (
     AttentionWithPairBias,
@@ -35,6 +39,16 @@ from physdock_tpu_torch.nn.primitives import (
 def _res(x, delta):
     """Residual add in the carry's (compute) dtype; sub-modules return fp32."""
     return x + delta.to(x.dtype)
+
+
+def run_block(blk, *args):
+    """One block of a stack: checkpointed when grad mode is on (only its
+    inputs are kept for the backward), a plain call otherwise, so
+    redocking under `no_grad` does not change."""
+    if torch.is_grad_enabled():
+        # the blocks draw no random numbers: no RNG state to stash
+        return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+    return blk(*args)
 
 
 class _Stack(nn.Module):
@@ -69,7 +83,7 @@ class AtomTransformer(_Stack):
     def forward(self, a, ap, ap_mask):
         a = a.to(self.dtype)
         for blk in self.blocks:
-            a = blk(a, ap, ap_mask)
+            a = run_block(blk, a, ap, ap_mask)
         return a
 
 
@@ -115,7 +129,7 @@ class Triangleformer(_Stack):
     def forward(self, z, z_mask, pad_mask=None):
         z = z.to(self.dtype)
         for blk in self.blocks:
-            z = blk(z, z_mask, pad_mask)
+            z = run_block(blk, z, z_mask, pad_mask)
         return z
 
 
@@ -156,7 +170,7 @@ class Evoformer(_Stack):
     def forward(self, m, z, z_mask):
         m, z = m.to(self.dtype), z.to(self.dtype)
         for blk in self.blocks:
-            m, z = blk(m, z, z_mask)
+            m, z = run_block(blk, m, z, z_mask)
         return m, z
 
 
@@ -192,7 +206,7 @@ class Pairformer(_Stack):
     def forward(self, s, z, z_mask):
         s, z = s.to(self.dtype), z.to(self.dtype)
         for blk in self.blocks:
-            s, z = blk(s, z, z_mask)
+            s, z = run_block(blk, s, z, z_mask)
         return s, z
 
 
@@ -221,12 +235,13 @@ class DiT(_Stack):
 
     def compute_bias(self, z, z_mask):
         """Per-block pair biases [no_blocks, H, S, S] (cached once per round)."""
-        return torch.stack([blk.attention.compute_bias(z, z_mask) for blk in self.blocks])
+        return torch.stack([run_block(blk.attention.compute_bias, z, z_mask)
+                            for blk in self.blocks])
 
     def forward(self, bs, t, cached_bias):
         bs = bs.to(self.dtype)
         for blk, bias in zip(self.blocks, cached_bias):
-            bs = blk(bs, t, bias)
+            bs = run_block(blk, bs, t, bias)
         return bs
 
 

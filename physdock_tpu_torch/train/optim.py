@@ -1,0 +1,104 @@
+"""Optimizer and schedule of the reference training recipe (port of
+`physdock_tpu/train/optim.py`), as plain tensor functions.
+
+(reference: tasks/unicore_train/train.sh:69-110)
+  adam betas (0.9, 0.95) eps 1e-8; lr 1.8e-3, linear warmup 1000 steps then
+  stair exponential decay x0.998 every 1000 steps; per-system grad clip 0.1
+  before the batch mean + global clip 10 after; fp32 grad reduction; EMA of
+  params with decay 0.999.
+
+`make_optimizer` is optax's chain `clip_by_global_norm(10)`,
+`scale_by_adam`, `scale_by_learning_rate(schedule)` in that order, over
+dicts of tensors.  The Adam moments and the EMA are updated in place (one
+copy of each instead of two).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+Tree = Dict[str, torch.Tensor]
+
+
+def stair_exp_warmup_schedule(peak_lr: float = 1.8e-3, warmup_steps: int = 1000,
+                              decay_rate: float = 0.998, decay_every: int = 1000
+                              ) -> Callable[[int], float]:
+    """Learning rate at an update count, in float32 as the JAX schedule."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        step = f32(step)
+        # (step+1)/warmup so the very first update is non-zero
+        warm = np.minimum((step + f32(1.0)) / f32(warmup_steps), f32(1.0))
+        stairs = np.floor(np.maximum(step - f32(warmup_steps), f32(0.0)) / f32(decay_every))
+        return float(f32(peak_lr) * warm * f32(decay_rate) ** stairs)
+
+    return schedule
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree.values()))
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int
+    mu: Tree
+    nu: Tree
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """Global transform applied after the batch mean; the per-system 0.1
+    clip happens inside the train step before it."""
+
+    schedule: Callable[[int], float]
+    global_clip: float = 10.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+
+    def init(self, params: Tree) -> AdamState:
+        zeros = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+        return AdamState(0, zeros, {n: z.clone() for n, z in zeros.items()})
+
+    def update(self, grads: Tree, state: AdamState):
+        """Returns the updates (to add to the params) and the new state;
+        `state`'s moments are updated in place."""
+        g_norm = global_norm(grads)
+        if not bool(g_norm < self.global_clip):
+            grads = {n: (g / g_norm) * self.global_clip for n, g in grads.items()}
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        step_size = -self.schedule(state.count)
+        updates = {}
+        for n, g in grads.items():
+            mu = state.mu[n].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu = state.nu[n].mul_(self.b2).add_((1.0 - self.b2) * g**2)
+            updates[n] = step_size * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
+        return updates, AdamState(count, state.mu, state.nu)
+
+
+def make_optimizer(peak_lr: float = 1.8e-3, warmup_steps: int = 1000,
+                   global_clip: float = 10.0, b1: float = 0.9, b2: float = 0.95,
+                   eps: float = 1e-8) -> Optimizer:
+    return Optimizer(stair_exp_warmup_schedule(peak_lr, warmup_steps), global_clip, b1, b2, eps)
+
+
+def clip_by_norm(tree: Tree, max_norm: float) -> Tree:
+    """Per-system gradient clip (train.sh --per-sample-clip-norm 0.1)."""
+    scale = torch.clamp(max_norm / (global_norm(tree) + 1e-9), max=1.0)
+    return {n: g * scale for n, g in tree.items()}
+
+
+@torch.no_grad()
+def ema_update(ema: Tree, params: Tree, decay: float = 0.999) -> None:
+    """ema <- ema * decay + params * (1 - decay), in place."""
+    for n, e in ema.items():
+        e.mul_(decay).add_(params[n].detach().float(), alpha=1.0 - decay)

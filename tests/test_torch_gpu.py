@@ -7,7 +7,11 @@ where JAX is not installed:
 Each wrapper launches the CUDA kernel on ragged shapes (neither axis a
 multiple of the 64-row tile), with fully masked rows and the -1e9 / -2e9
 tiers, and is held against its plain version on the same card tensors:
-fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2.
+fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2.  The training pair
+(`flash_fwd_lse`, `flash_bwd`) is held the same way at D = 32, 64 and 128,
+relative to max|plain| (fp32 1e-4, bf16 2e-2); the autograd Functions
+against autograd through the plain version; and a CUDA wrapper called on
+inputs that require grad, outside a Function, must raise.
 """
 
 import numpy as np
@@ -17,6 +21,12 @@ import torch
 from physdock_tpu_torch.ops import _flash_lib
 from physdock_tpu_torch.ops.attention import dot_product_attention
 from physdock_tpu_torch.ops.flash_attention import flash_sdpa
+from physdock_tpu_torch.ops.flash_attention_bwd import (
+    flash_bwd,
+    flash_bwd_plain,
+    flash_fwd_lse,
+    flash_fwd_lse_plain,
+)
 from physdock_tpu_torch.ops.flash_attention_folded import (
     flash_sdpa_folded,
     fold,
@@ -88,3 +98,78 @@ def test_cuda_reference_impl_raises():
     q = torch.zeros(2, 2, 64, 32, device="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         dot_product_attention(q, q, q, None, impl="reference")
+
+
+def _rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_fwd_lse_and_bwd_match_plain(d, dtype):
+    _need_cuda()
+    b, h, s_q, s_k = 3, 4, 200, 333  # ragged: neither a multiple of a tile
+    q, k, v, bias = _inputs(7, (b, h, s_q, d), (b, h, s_k, d), h, s_q, s_k, dtype)
+    do = torch.randn((b, s_q, h, d), device="cuda").to(dtype).permute(0, 2, 1, 3)
+    if d == 32:  # the folded layout of the training call sites, as strides
+        q, k, v = (x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3) for x in (q, k, v))
+    _flash_lib.reset_launches()
+    o, m, l = flash_fwd_lse(q, k, v, bias)
+    dq, dk, dv, db = flash_bwd(q, k, v, bias, o, m, l, do)
+    torch.cuda.synchronize()
+    assert _flash_lib.LAUNCHES["flash_fwd_lse"] == 1 and _flash_lib.LAUNCHES["flash_bwd"] == 1
+    ro, rm, rl = flash_fwd_lse_plain(q, k, v, bias)
+    ref = flash_bwd_plain(q, k, v, bias, o, m, l, do)
+    tol = TOL[dtype]
+    assert o.dtype == dtype and m.dtype == torch.float32 and db.dtype == torch.float32
+    assert _rel_err(o, ro) <= tol
+    for x, r in ((m, rm), (l, rl)):
+        assert bool(((x - r).abs() <= 1e-5 * r.abs()).all())
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), (dq, dk, dv, db), ref):
+        assert x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert _rel_err(x, r) <= tol, (name, _rel_err(x, r))
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_on_requires_grad_inputs_raises():
+    _need_cuda()
+    q = torch.randn(2, 2, 64, 32, device="cuda", requires_grad=True)
+    bias = torch.randn(2, 64, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        flash_sdpa(q, q, q, None)
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        flash_sdpa_grouped(q, q, q, bias)
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        flash_fwd_lse(q, q, q, bias)
+    with torch.no_grad():
+        assert flash_sdpa(q, q, q, None).shape == q.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["folded", "grouped", "flash"])
+def test_cuda_attention_gradients_match_plain_autograd(case):
+    _need_cuda()
+    shapes = {"folded": ((3, 4, 130, 32), (4, 130, 130)),
+              "grouped": ((3, 2, 130, 32), (2, 130, 130)),
+              "flash": ((2, 130, 32), (2, 130, 130))}
+    q_shape, b_shape = shapes[case]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    leaves = [torch.randn(q_shape, generator=g, device="cuda").requires_grad_(True) for _ in range(3)]
+    bias = torch.randn(b_shape, generator=g, device="cuda")
+    bias[..., :4, :] -= 1e9
+    bias = bias.requires_grad_(True)
+    do = torch.randn(q_shape, generator=g, device="cuda")
+    _flash_lib.reset_launches()
+    dot_product_attention(*leaves, bias).backward(do)
+    torch.cuda.synchronize()
+    launched = {k for k, n in _flash_lib.LAUNCHES.items() if n}
+    want = {"folded": {"flash_fwd_lse", "flash_bwd"}, "grouped": {"flash_sdpa_grouped"},
+            "flash": {"flash_sdpa"}}[case]
+    assert launched == want
+    got = [t.grad for t in leaves + [bias]]
+    ref_in = [t.detach().requires_grad_(True) for t in leaves + [bias]]
+    _flash_lib.sdpa_plain(*ref_in).backward(do)
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), got, [t.grad for t in ref_in]):
+        assert _rel_err(x, r) <= 1e-4, (name, _rel_err(x, r))
