@@ -8,12 +8,17 @@ exits non-zero (no phase is caught):
 
   1. device   -- nvidia-smi name and power limit, torch and CUDA versions
   2. build    -- nvcc of csrc/flash_fwd.cu and csrc/flash_bwd.cu, one
-                 process each, started together, with the -Xptxas -v reports
+                 process each, started together, with the -Xptxas -v
+                 reports; then cuobjdump -sass of the forward library:
+                 every instance of the tensor-core kernel (flash_fwd_tc)
+                 must hold HGMMA (wgmma) and LDGSTS (cp.async)
   3. kernels  -- each of the four forward attention wrappers at its
                  call-site shape, fp32 and bf16, masked rows and the -2e9
                  tier included, against its plain PyTorch version (fp32
                  <= 1e-4 with TF32 off, bf16 <= 2e-2); kernel, plain and
-                 SDPA times
+                 SDPA times, and the same-call time of the SIMT kernel at
+                 the same inputs (the stats path, `before_ms`), each the
+                 device time of CUDA-graph replays
   4. kernels (training) -- the kernels at the shapes and strides the
                  medium train run gives them (crop 256/2048, 48 samples):
                  flash_sdpa_grouped at the token DiT (B 48, H 16, S 256,
@@ -21,7 +26,8 @@ exits non-zero (no phase is caught):
                  Pairformer single attention (H 16, S 256), the trunk
                  atom transformer (H 4, S 2048) and the MSA columns (no
                  bias), each against its plain version at phase 3's
-                 limits; flash_fwd_lse and flash_bwd at their two call
+                 limits (with their before_ms); flash_fwd_lse and
+                 flash_bwd at their two call
                  sites (atom DiT: B 48, H 4, S 2048, D 32; triangle:
                  B 256, H 4, S 256, D 32): o, m, l, dq, dk, dv and dbias
                  against the plain versions (rel to max|plain|: fp32 1e-4,
@@ -85,7 +91,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SYSTEMS = os.path.join(REPO, "demo", "redocking", "Posebusters_subset")
 H100_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+# H100 SXM, dense: rows 5-6 (SIMT fp32, CUDA cores) and rows 1-4 (tensor
+# cores; fp32 runs as TF32, counted as one pass)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+TC_PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+EXP_PER_S = 3.9e12  # special-function unit, 16 per SM per clock
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PARAMS = os.path.join(REPO, "_overfit", "ema_params.npz")
 MODEL_REL = 1e-3
@@ -115,6 +125,41 @@ def card_line() -> str:
 
 
 # ----------------------------------------------------------------- kernels
+
+
+def check_sass():
+    """Every instance of the tensor-core forward in the built library runs
+    wgmma (SASS HGMMA) and fills its tiles with cp.async (SASS LDGSTS)."""
+    import shutil
+
+    from physdock_tpu_torch.ops import _flash_lib
+
+    tool = os.path.join(os.path.dirname(_flash_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        fail("cuobjdump not found beside nvcc or on PATH")
+    out = subprocess.run([tool, "-sass", _flash_lib.lib_path("flash_fwd")],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"{tool} -sass: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "LDGSTS": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "LDGSTS"):
+                counts[fn][op] += op in line
+    tc = {f: c for f, c in counts.items() if "flash_fwd_tc" in f}
+    simt = {f: c for f, c in counts.items() if "flash_fwd_kernel" in f}
+    log(f"[build] {tool} -sass: {len(tc)} flash_fwd_tc instances, HGMMA "
+        f"{sorted(c['HGMMA'] for c in tc.values())}, LDGSTS {sorted(c['LDGSTS'] for c in tc.values())}; "
+        f"{len(simt)} SIMT instances, HGMMA {sum(c['HGMMA'] for c in simt.values())}")
+    bad = [f for f, c in tc.items() if not (c["HGMMA"] > 0 and c["LDGSTS"] > 0)]
+    # 3 head dims x 4 dtype pairs x 1 or 2 warpgroups (fp32 at D = 128: 1)
+    if len(tc) != 22 or bad:
+        fail(f"flash_fwd_tc: {len(tc)} instances (want 22); without HGMMA or LDGSTS: {bad}")
 
 
 def kernel_cases():
@@ -180,6 +225,31 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_graph_ms(torch, fn, reps):
+    """Device milliseconds per call: `reps` calls captured in one CUDA
+    graph and replayed between two events, so the host's launch overhead
+    (the Python of a wrapper, tens of microseconds) does not hide a kernel
+    shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # first call (builds, kernel attributes) outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def run_kernel_case(torch, name, spec, dtype, seed=None):
     import torch.nn.functional as F
 
@@ -213,22 +283,30 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     finite = bool(torch.isfinite(o_kernel).all())
     mask_b = None if bias is None else bias.to(q.dtype)
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_b)  # noqa: E731
-    reps = 20 if spec["S"] >= 2048 else 50
-    ms = time_ms(torch, kern, reps)
-    plain_ms = time_ms(torch, plain, max(3, reps // 5))
-    library_ms = time_ms(torch, lib, reps)
+    # the SIMT kernel on the same inputs: the forward with stats
     B, S, D = spec["B"], spec["S"], spec["D"]
+    qf, kf, vf = (x.reshape(-1, H, x.shape[-2], D) for x in (qs, ks, vs))
+    before = lambda: _flash_lib.launch(  # noqa: E731
+        qf, kf, vf, bias, 0 if bias is None else H, stats=True)
+    reps = 20 if spec["S"] >= 2048 else 50
+    ms = time_graph_ms(torch, kern, reps)
+    before_ms = time_graph_ms(torch, before, reps)
+    plain_ms = time_graph_ms(torch, plain, max(3, reps // 5))
+    library_ms = time_graph_ms(torch, lib, reps)
     isz = torch.tensor([], dtype=dtype).element_size()
-    # q, k, v, o, bias once each
-    nbytes = (4 * B * H * S * D + (0 if bias is None else H * S * S)) * isz
-    flops = 4 * B * H * S * S * D
     dname = str(dtype).replace("torch.", "")
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+    # q, k, v, o, bias once each; the products on the tensor cores; one
+    # exponential per logit
+    bounds = {
+        "bytes": (4 * B * H * S * D + (0 if bias is None else H * S * S)) * isz / H100_BYTES_PER_S * 1e3,
+        "operations": 4 * B * H * S * S * D / TC_PEAK_FLOPS[dname] * 1e3,
+        "exp": B * H * S * S / EXP_PER_S * 1e3,
+    }
+    bound_by = max(bounds, key=bounds.get)
     row = {
         "name": name, "dtype": dname, "max_abs_err": err, "finite": finite,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bounds[bound_by], "bound_by": bound_by,
         "shape": {k: spec[k] for k in ("B", "H", "S", "D")}, "layout": spec["layout"],
     }
     log(f"  {json.dumps(row)}")
@@ -668,6 +746,7 @@ def main():
             if "ptxas" in line or "spill" in line or "Used" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] done, both sources in parallel ({time.time() - t0:.2f} s)")
+    check_sass()
 
     t0 = time.time()
     rows = phase_kernels(torch)
@@ -732,16 +811,18 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "before_ms": r["before_ms"],
             "bf16_max_abs_err": rb["max_abs_err"], "bf16_ms": rb["ms"],
+            "bf16_bound_ms": rb["bound_ms"], "bf16_bound_by": rb["bound_by"],
+            "bf16_library_ms": rb["library_ms"], "bf16_before_ms": rb["before_ms"],
             "train_launches_per_step": per_step[name],
             "train_sites": {
-                site: {"max_abs_err": train_rows[(n, site, "float32")]["max_abs_err"],
-                       "bf16_max_abs_err": train_rows[(n, site, "bfloat16")]["max_abs_err"],
-                       "ms": train_rows[(n, site, "float32")]["ms"],
-                       "plain_ms": train_rows[(n, site, "float32")]["plain_ms"],
-                       "bound_ms": train_rows[(n, site, "float32")]["bound_ms"],
-                       "library_ms": train_rows[(n, site, "float32")]["library_ms"]}
+                site: {k: train_rows[(n, site, dt)][f]
+                       for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
+                       for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
+                                    ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
+                                    ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
+                                    ("library_ms", pre + "library_ms"))}
                 for n, site, _ in TRAIN_FWD_SITES if n == name},
         })
     for name, replaces, source in TRAIN_KERNELS:

@@ -1,13 +1,14 @@
 """Build, load and launch the hand-written Hopper attention kernels.
 
-Each `.cu` under `csrc/` (`flash_fwd.cu`: the forward, with optional
-softmax stats; `flash_bwd.cu`: the backward) is compiled with `nvcc` into
-`build/lib<name>.so` at the repo root the first time a wrapper launches
-it (plain C interface, bound with ctypes; no PyTorch headers, so a build
-takes seconds).  `build_all` starts one `nvcc` per source at once.  Every
-wrapper in `ops/flash_attention*.py` goes through `launch` or
-`launch_bwd`, which check what the kernels take and raise on anything
-else.
+Each `.cu` under `csrc/` (`flash_fwd.cu`: the forward, on the tensor
+cores, or with softmax stats on the SIMT kernel; `flash_bwd.cu`: the
+backward) is compiled with `nvcc` into `build/lib<name>.so` at the repo
+root the first time a wrapper launches it, and again when the source or
+a header it includes from `csrc/` is newer (plain C interface, bound with
+ctypes; no PyTorch headers, so a build takes seconds).  `build_all`
+starts one `nvcc` per source at once.  Every wrapper in
+`ops/flash_attention*.py` goes through `launch` or `launch_bwd`, which
+check what the kernels take and raise on anything else.
 
 A kernel writes into fresh tensors, so what it returns has no `grad_fn`.
 Called with grad mode on and an input that requires grad, `launch` and
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,6 +41,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 HEAD_DIMS = (32, 64, 128)
+BQ = 64  # query rows per forward block (flash_fwd.cu)
+KEY_CHUNK_UNIT = 64  # key chunks of the split forward are multiples of this
 BQ_BWD = 64  # query rows per dq/dbias block (flash_bwd.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,9 +79,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str):
+    """The source of `name` and every file it includes with `#include "..."`
+    (resolved beside the including file, recursively)."""
+    todo, seen = [SOURCES[name]], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), inc) for inc in _INCLUDE.findall(text)]
+    return seen
+
+
 def _fresh(name: str) -> bool:
     path = lib_path(name)
-    return os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(SOURCES[name])
+    return os.path.exists(path) and all(
+        os.path.getmtime(path) >= os.path.getmtime(src) for src in source_files(name))
 
 
 def build_all(force: bool = False, names=None) -> Dict[str, str]:
@@ -127,6 +150,13 @@ def _load(name: str) -> ctypes.CDLL:
                 + [i32, i32, i32, i32, ctypes.c_float, p]
             )
             lib.flash_fwd.restype = i32
+            lib.flash_fwd_split.argtypes = (
+                [i32, i32, i32] + strided * 4
+                + [p, i64, i64, i32]
+                + [i32, i32, i32, i32, ctypes.c_float]
+                + [i32, i32, p, p, p, p]
+            )
+            lib.flash_fwd_split.restype = i32
         else:
             lib.flash_bwd.argtypes = (
                 [i32, i32, i32] + strided * 4 + [p, p, p, p] + strided * 3 + [p, p]
@@ -161,7 +191,10 @@ def launch(q, k, v, bias, lead: int, stats: bool = False):
     with a contiguous D axis). `bias` is None or a contiguous [lead, S_q,
     S_k] tensor whose row-block `(b*H + h) % lead` serves (b, h). Returns a
     new [B, H, S_q, D] tensor, stored folded ([B, S, H, D] memory) when q
-    is; with `stats`, also the fp32 row max m and normalizer l [B, H, S_q]."""
+    is. Without `stats` this is the tensor-core kernel, over the key
+    chunks of `key_split` (fp32 partials merged by a second kernel); with
+    `stats`, the SIMT kernel, which also returns the fp32 row max m and
+    normalizer l [B, H, S_q]."""
     check_no_grad(q, k, v, bias)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("the flash kernel takes CUDA tensors only")
@@ -197,34 +230,67 @@ def launch(q, k, v, bias, lead: int, stats: bool = False):
     else:
         b_args = (None, 0, 0, 0)
         b_code = 0
+    lib = _load("flash_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    qkvo = (q.data_ptr(), *_bhsd_strides(q), k.data_ptr(), *_bhsd_strides(k),
+            v.data_ptr(), *_bhsd_strides(v), o.data_ptr(), *_bhsd_strides(o))
+    scale = 1.0 / math.sqrt(D)
     if stats:
         m = torch.empty((B, H, S_q), device=q.device, dtype=torch.float32)
         l = torch.empty_like(m)
-        ml = (m.data_ptr(), l.data_ptr())
+        err = lib.flash_fwd(_DTYPE_CODE[q.dtype], b_code, D, *qkvo, m.data_ptr(), l.data_ptr(),
+                            *b_args, B, H, S_q, S_k, scale, stream)
     else:
-        ml = (None, None)
-    lib = _load("flash_fwd")
-    err = lib.flash_fwd(
-        _DTYPE_CODE[q.dtype], b_code, D,
-        q.data_ptr(), *_bhsd_strides(q),
-        k.data_ptr(), *_bhsd_strides(k),
-        v.data_ptr(), *_bhsd_strides(v),
-        o.data_ptr(), *_bhsd_strides(o),
-        *ml,
-        *b_args,
-        B, H, S_q, S_k, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+        n_split, key_chunk = key_split(B, H, S_q, S_k, _sm_count(q.device))
+        if n_split == 1:
+            err = lib.flash_fwd(_DTYPE_CODE[q.dtype], b_code, D, *qkvo, None, None,
+                                *b_args, B, H, S_q, S_k, scale, stream)
+        else:
+            # one fp32 scratch: o_part [n_split, B*H, S_q, D], then m_part, l_part
+            rows = n_split * B * H * S_q
+            part = torch.empty(rows * (D + 2), device=q.device, dtype=torch.float32)
+            ptr = part.data_ptr()
+            err = lib.flash_fwd_split(
+                _DTYPE_CODE[q.dtype], b_code, D, *qkvo, *b_args, B, H, S_q, S_k, scale,
+                key_chunk, n_split, ptr, ptr + rows * D * 4, ptr + rows * (D + 1) * 4, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     return (o, m, l) if stats else o
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    """SMs of the card (cached: the property query costs tens of
+    microseconds, as much as a small launch)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def key_split(B: int, H: int, S_q: int, S_k: int, sms: int):
+    """(n_split, key_chunk) of the tensor-core forward: when its
+    B*H*ceil(S_q/64) warpgroups (one per 64 query rows) are fewer than two
+    per SM, the keys are cut into chunks of a multiple of 64 keys, enough
+    for about two warpgroups per SM, every chunk non-empty; else one chunk
+    of all S_k keys."""
+    tiles = B * H * -(-S_q // BQ)
+    units = -(-S_k // KEY_CHUNK_UNIT)
+    want = min(units, -(-2 * sms // tiles))
+    if want <= 1:
+        return 1, S_k
+    key_chunk = -(-units // want) * KEY_CHUNK_UNIT
+    return -(-S_k // key_chunk), key_chunk
 
 
 def bwd_groups(B: int, H: int, S_q: int, device) -> int:
     """Batch groups of the dq/dbias kernel: enough (h, query tile, group)
     blocks for two per SM, each group a run of consecutive samples whose
     fp32 dbias partial it owns alone; never an empty group."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     tiles = H * -(-S_q // BQ_BWD)
     g = min(B, max(1, -(-2 * sms // tiles)))
     per = -(-B // g)
@@ -299,3 +365,29 @@ def sdpa_plain(q, k, v, bias=None):
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("...qk,...kd->...qd", probs.to(q.dtype), v)
+
+
+def split_plain(q, k, v, bias, key_chunk: int):
+    """The plain version of the split forward's first kernel: per chunk z
+    of `key_chunk` keys, the unnormalized o_z = exp(s - m_z) @ v, the
+    chunk's row max m_z and sum l_z, all fp32. Returns ([Z, ..., S_q, D],
+    [Z, ..., S_q], [Z, ..., S_q])."""
+    d = q.shape[-1]
+    logits = torch.einsum("...qd,...kd->...qk", q, k).float() * (1.0 / math.sqrt(d))
+    if bias is not None:
+        logits = logits + bias.float()
+    parts = []
+    for z0 in range(0, k.shape[-2], key_chunk):
+        s = logits[..., z0:z0 + key_chunk]
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((torch.einsum("...qk,...kd->...qd", p, v[..., z0:z0 + key_chunk, :].float()),
+                      m, p.sum(-1)))
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def combine_plain(o_part, m_part, l_part):
+    """The plain version of the combine kernel: o = sum_z o_z w_z /
+    sum_z l_z w_z with w_z = exp(m_z - max_z m_z), m and l kept apart."""
+    w = torch.exp(m_part - m_part.amax(0))
+    return (o_part * w[..., None]).sum(0) / (l_part * w).sum(0)[..., None]

@@ -14,6 +14,8 @@ against autograd through the plain version; and a CUDA wrapper called on
 inputs that require grad, outside a Function, must raise.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +175,97 @@ def test_cuda_attention_gradients_match_plain_autograd(case):
     _flash_lib.sdpa_plain(*ref_in).backward(do)
     for name, x, r in zip(("dq", "dk", "dv", "dbias"), got, [t.grad for t in ref_in]):
         assert _rel_err(x, r) <= 1e-4, (name, _rel_err(x, r))
+
+
+# ----------------------------------------------- the tensor-core forward
+# Every call of `_flash_lib.launch` without stats runs flash_fwd_tc (wgmma;
+# bf16, or fp32 as three TF32 passes), split over key chunks when the grid
+# is small; each case is held against sdpa_plain at the limits above.
+
+
+def _tc_case(seed, b, h, s_q, s_k, d, dtype, bias_dtype=None, lead="h", folded=False,
+             masked_gain=1.0):
+    """q/k/v [b, h, s, d] views (folded strides on request), a [lead, s_q,
+    s_k] bias with the mask tiers ("h": lead = h, "bh": lead = b*h, None:
+    no bias; the first s_q // 16 rows fully masked, their q scaled by
+    `masked_gain`), and the plain result."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32) for s in (s_q, s_k, s_k))
+    q[:, : max(1, s_q // 16)] *= masked_gain
+    q, k, v = (torch.from_numpy(x).to(dtype).cuda() for x in (q, k, v))
+    if folded:
+        q, k, v = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    else:
+        q, k, v = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    if lead is None:
+        return q, k, v, None, 0, _flash_lib.sdpa_plain(q, k, v)
+    n = h if lead == "h" else b * h
+    bias = rng.normal(size=(n, s_q, s_k)).astype(np.float32)
+    mask = rng.random((s_q, s_k)) < 0.2
+    mask[: max(1, s_q // 16)] = True  # fully masked rows
+    pad = np.zeros((s_q, s_k), bool)
+    pad[:, s_k - s_k // 8:] = True
+    bias = bias + np.where(mask, -1e9, 0.0) + np.where(pad, -2e9, 0.0)
+    bias = torch.from_numpy(bias.astype(np.float32)).to(bias_dtype or dtype).cuda()
+    ref_bias = bias if lead == "h" else bias.view(b, h, s_q, s_k)
+    return q, k, v, bias, n, _flash_lib.sdpa_plain(q, k, v, ref_bias)
+
+
+def _check_tc(q, k, v, bias, lead, ref):
+    out = _flash_lib.launch(q, k, v, bias, lead)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == q.dtype
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= TOL[q.dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-f32", "bf16-bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tc_head_dims_and_dtype_pairs(d, dtypes):
+    _need_cuda()
+    _check_tc(*_tc_case(11, 2, 3, 200, 333, d, dtypes[0], dtypes[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k", [(1, 1), (2, 2), (63, 63), (65, 65), (300, 300),
+                                     (65, 300), (300, 63), (1, 300)])
+def test_tc_ragged_lengths(s_q, s_k, dtype):
+    """Neither axis a multiple of the 64-row tile; with b*h = 2 every case
+    of more than 64 keys also takes the key split and its combine."""
+    _need_cuda()
+    _check_tc(*_tc_case(12, 1, 2, s_q, s_k, 32, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", ["h", "bh", None])
+@pytest.mark.parametrize("folded", [False, True], ids=["split", "folded"])
+def test_tc_bias_lead_and_strides(folded, lead, dtype):
+    _need_cuda()
+    _check_tc(*_tc_case(13, 3, 4, 130, 190, 32, dtype, lead=lead, folded=folded))
+
+
+@pytest.mark.gpu
+def test_tc_masked_rows_with_large_logits():
+    """|s * scale| beyond 32 (half an ulp of 1e9) on fully masked rows: the
+    logit rounds to a neighbour of -1e9 there, as in the plain version."""
+    _need_cuda()
+    q, k, v, bias, lead, ref = _tc_case(14, 2, 2, 150, 260, 32, torch.float32, masked_gain=12.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(32)
+    assert float(s[:, :, :9].abs().max()) > 32
+    _check_tc(q, k, v, bias, lead, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tc_key_split_at_the_trunk_shape(dtype):
+    """B*H = 4, S = 2048 (the trunk atom transformer): 128 query tiles, cut
+    into key chunks and combined."""
+    _need_cuda()
+    assert _flash_lib.key_split(1, 4, 2048, 2048, _flash_lib._sm_count("cuda"))[0] > 1
+    _check_tc(*_tc_case(15, 1, 4, 2048, 2048, 32, dtype))
