@@ -9,9 +9,11 @@ exits non-zero (no phase is caught):
   1. device   -- nvidia-smi name and power limit, torch and CUDA versions
   2. build    -- nvcc of csrc/flash_fwd.cu and csrc/flash_bwd.cu, one
                  process each, started together, with the -Xptxas -v
-                 reports; then cuobjdump -sass of the forward library:
-                 every instance of the tensor-core kernel (flash_fwd_tc)
-                 must hold HGMMA (wgmma) and LDGSTS (cp.async)
+                 reports; then cuobjdump -sass of both libraries: every
+                 instance of the tensor-core kernels (flash_fwd_tc, which
+                 also serves the forward with stats, and the backward's
+                 dq_dbias_tc and dkdv_tc) must hold HGMMA (wgmma) and
+                 LDGSTS (cp.async)
   3. kernels  -- each of the four forward attention wrappers at its
                  call-site shape, fp32 and bf16, masked rows and the -2e9
                  tier included, against its plain PyTorch version (fp32
@@ -34,7 +36,10 @@ exits non-zero (no phase is caught):
                  bf16 2e-2); all fp32 and bf16 with masked rows and the
                  -2e9 tier; kernel, plain and SDPA times (for rows 5-6 the
                  memory-efficient SDPA forward, backward alone, the bias
-                 expanded over B and requiring grad)
+                 expanded over B and requiring grad), and for rows 5-6 the
+                 same-call time of the SIMT pair at the same inputs
+                 (`before_ms`); kernel and SIMT times are CUDA-graph
+                 replays, plain and SDPA times eager
   5. model    -- the toy model's conditioning, DiT bias cache and denoise
                  at the main dock's shapes (256 tokens, 2048 atoms, 2
                  samples), on the card through the kernels and on the CPU
@@ -48,7 +53,8 @@ exits non-zero (no phase is caught):
                  the kernels and on the CPU through the plain versions;
                  loss within rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||
                  over all parameters; rows 5, 6, 2 and 4 launched, rows 1
-                 and 3 not (the dispatch under grad)
+                 and 3 not (the dispatch under grad), and rows 5-6 on the
+                 tensor-core pair, the SIMT pair never
   7. accuracy -- guided redocking of the 4 demo systems with the committed
                  toy weights (_overfit/ema_params.npz) at crop 128/1024,
                  40 steps, 2 rounds, 20 poses per round, fp32; every
@@ -65,7 +71,8 @@ exits non-zero (no phase is caught):
                  sampler retry, params and EMA moved, the step-3
                  checkpoint restores and its EMA exports as the JAX .npz
                  layout that loads into a fresh model with every key used
-                 once; seconds per step (the wait for the batch and its
+                 once; rows 5-6 on the tensor-core pair, the SIMT pair
+                 never; seconds per step (the wait for the batch and its
                  copy included, and also shown alone), peak memory,
                  launches per step
  10. summary  -- the per-kernel JSON line (six rows; launches from the
@@ -91,9 +98,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SYSTEMS = os.path.join(REPO, "demo", "redocking", "Posebusters_subset")
 H100_BYTES_PER_S = 3.35e12
-# H100 SXM, dense: rows 5-6 (SIMT fp32, CUDA cores) and rows 1-4 (tensor
-# cores; fp32 runs as TF32, counted as one pass)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM, dense, tensor cores (fp32 runs as TF32, counted as one pass)
 TC_PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
 EXP_PER_S = 3.9e12  # special-function unit, 16 per SM per clock
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -127,20 +132,9 @@ def card_line() -> str:
 # ----------------------------------------------------------------- kernels
 
 
-def check_sass():
-    """Every instance of the tensor-core forward in the built library runs
-    wgmma (SASS HGMMA) and fills its tiles with cp.async (SASS LDGSTS)."""
-    import shutil
-
-    from physdock_tpu_torch.ops import _flash_lib
-
-    tool = os.path.join(os.path.dirname(_flash_lib._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        tool = shutil.which("cuobjdump")
-    if not tool:
-        fail("cuobjdump not found beside nvcc or on PATH")
-    out = subprocess.run([tool, "-sass", _flash_lib.lib_path("flash_fwd")],
-                         capture_output=True, text=True, timeout=300)
+def _sass_counts(tool, lib):
+    """{function: {"HGMMA": n, "LDGSTS": n}} of a library's SASS."""
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         fail(f"{tool} -sass: {out.stderr.strip()}")
     counts, fn = {}, None
@@ -151,15 +145,39 @@ def check_sass():
         elif fn is not None:
             for op in ("HGMMA", "LDGSTS"):
                 counts[fn][op] += op in line
-    tc = {f: c for f, c in counts.items() if "flash_fwd_tc" in f}
-    simt = {f: c for f, c in counts.items() if "flash_fwd_kernel" in f}
-    log(f"[build] {tool} -sass: {len(tc)} flash_fwd_tc instances, HGMMA "
-        f"{sorted(c['HGMMA'] for c in tc.values())}, LDGSTS {sorted(c['LDGSTS'] for c in tc.values())}; "
-        f"{len(simt)} SIMT instances, HGMMA {sum(c['HGMMA'] for c in simt.values())}")
-    bad = [f for f, c in tc.items() if not (c["HGMMA"] > 0 and c["LDGSTS"] > 0)]
-    # 3 head dims x 4 dtype pairs x 1 or 2 warpgroups (fp32 at D = 128: 1)
-    if len(tc) != 22 or bad:
-        fail(f"flash_fwd_tc: {len(tc)} instances (want 22); without HGMMA or LDGSTS: {bad}")
+    return counts
+
+
+# tensor-core kernels and their instance counts: the forward at 3 head dims
+# x 4 dtype pairs x 1 or 2 warpgroups (fp32 at D = 128: 1); the backward's
+# two kernels at D 32 and 64 x 4 dtype pairs
+TC_KERNELS = {"flash_fwd": {"flash_fwd_tc": 22}, "flash_bwd": {"dq_dbias_tc": 8, "dkdv_tc": 8}}
+
+
+def check_sass():
+    """Every instance of the tensor-core kernels in the built libraries runs
+    wgmma (SASS HGMMA) and fills its tiles with cp.async (SASS LDGSTS)."""
+    import shutil
+
+    from physdock_tpu_torch.ops import _flash_lib
+
+    tool = os.path.join(os.path.dirname(_flash_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        fail("cuobjdump not found beside nvcc or on PATH")
+    for lib, kernels in TC_KERNELS.items():
+        counts = _sass_counts(tool, _flash_lib.lib_path(lib))
+        simt = {f: c for f, c in counts.items() if "_kernel" in f}
+        log(f"[build] {tool} -sass {lib}: {len(simt)} SIMT instances, HGMMA "
+            f"{sum(c['HGMMA'] for c in simt.values())}")
+        for kernel, want in kernels.items():
+            tc = {f: c for f, c in counts.items() if kernel in f}
+            log(f"[build]   {len(tc)} {kernel} instances, HGMMA {sorted(c['HGMMA'] for c in tc.values())}, "
+                f"LDGSTS {sorted(c['LDGSTS'] for c in tc.values())}")
+            bad = [f for f, c in tc.items() if not (c["HGMMA"] > 0 and c["LDGSTS"] > 0)]
+            if len(tc) != want or bad:
+                fail(f"{kernel}: {len(tc)} instances (want {want}); without HGMMA or LDGSTS: {bad}")
 
 
 def kernel_cases():
@@ -361,10 +379,12 @@ def _rel(out, ref) -> float:
 
 def run_train_kernel_case(torch, site, spec, dtype):
     """Rows 5 and 6 at one call site against their plain versions, with
-    the memory-efficient SDPA as the yardstick."""
+    the memory-efficient SDPA as the yardstick and the SIMT pair at the
+    same inputs as `before_ms`."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from physdock_tpu_torch.ops import _flash_lib
     from physdock_tpu_torch.ops.flash_attention_bwd import (
         flash_bwd,
         flash_bwd_plain,
@@ -379,9 +399,11 @@ def run_train_kernel_case(torch, site, spec, dtype):
     g = torch.Generator(device="cuda").manual_seed(B)
     do = split_view(torch.randn((B, S, H * D), generator=g, device="cuda").to(dtype), H)
 
+    _flash_lib.reset_launches()
     o, m, l = flash_fwd_lse(q, k, v, bias)
     grads = flash_bwd(q, k, v, bias, o, m, l, do)
     torch.cuda.synchronize()
+    routes = dict(_flash_lib.ROUTES)
     ro, rm, rl = flash_fwd_lse_plain(q, k, v, bias)
     ref = flash_bwd_plain(q, k, v, bias, o, m, l, do)
     dname = str(dtype).replace("torch.", "")
@@ -396,10 +418,19 @@ def run_train_kernel_case(torch, site, spec, dtype):
     bwd = lambda: flash_bwd(q, k, v, bias, o, m, l, do)  # noqa: E731
     plain_fwd = lambda: flash_fwd_lse_plain(q, k, v, bias)  # noqa: E731
     plain_bwd = lambda: flash_bwd_plain(q, k, v, bias, o, m, l, do)  # noqa: E731
+    # the SIMT pair on the same inputs, its backward on its own m and l
+    _, sm, sl = _flash_lib.launch(q, k, v, bias, H, stats=True, simt=True)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    simt_fwd = lambda: _flash_lib.launch(q, k, v, bias, H, stats=True, simt=True)  # noqa: E731
+    simt_bwd = lambda: _flash_lib.launch_bwd(q, k, v, bias, sm, sl, delta, do, simt=True)  # noqa: E731
     big = S >= 2048
-    t = {"fwd": time_ms(torch, fwd, 5 if big else 20), "bwd": time_ms(torch, bwd, 3 if big else 10),
+    t = {"fwd": time_graph_ms(torch, fwd, 5 if big else 20),
+         "bwd": time_graph_ms(torch, bwd, 3 if big else 10),
+         "simt_fwd": time_graph_ms(torch, simt_fwd, 3 if big else 10),
+         "simt_bwd": time_graph_ms(torch, simt_bwd, 2 if big else 5),
          "plain_fwd": time_ms(torch, plain_fwd, 2 if big else 5),
          "plain_bwd": time_ms(torch, plain_bwd, 2 if big else 5)}
+    del sm, sl
     # yardstick: memory-efficient SDPA with the bias expanded over B, all
     # inputs requiring grad; timed only, never on the port's path
     lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -418,32 +449,38 @@ def run_train_kernel_case(torch, site, spec, dtype):
 
     isz = torch.tensor([], dtype=dtype).element_size()
     bhsd = B * H * S * D
-    peak = PEAK_FLOPS[dname]
     rows = {}
-    for name, nbytes, flops, ms, plain_ms, lib_ms, err, abs_err in (
-        # q, k, v, bias read; o written; m, l fp32 written
+    for name, nbytes, flops, ms, before_ms, plain_ms, lib_ms, err, abs_err in (
+        # q, k, v, bias read; o written; m, l fp32 written; two products
         ("flash_fwd_lse", (4 * bhsd + H * S * S) * isz + 2 * B * H * S * 4,
-         4 * B * H * S * S * D, t["fwd"], t["plain_fwd"], t["sdpa_fwd"],
+         4 * B * H * S * S * D, t["fwd"], t["simt_fwd"], t["plain_fwd"], t["sdpa_fwd"],
          max(errs[n] for n in ("o", "m", "l")), abs_fwd),
         # q, k, v, o, do, bias read, m, l read; dq, dk, dv, dbias (fp32)
         # written; five products (s recomputed, dp, dv, dq, dk)
         ("flash_bwd", (8 * bhsd + H * S * S) * isz + 2 * B * H * S * 4 + H * S * S * 4,
-         10 * B * H * S * S * D, t["bwd"], t["plain_bwd"], t["sdpa_bwd"],
+         10 * B * H * S * S * D, t["bwd"], t["simt_bwd"], t["plain_bwd"], t["sdpa_bwd"],
          max(errs[n] for n in ("dq", "dk", "dv", "dbias")), abs_bwd),
     ):
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+        # the products at the tensor-core peak, one exp per logit
+        bounds = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+                  "operations": flops / TC_PEAK_FLOPS[dname] * 1e3,
+                  "exp": B * H * S * S / EXP_PER_S * 1e3}
+        bound_by = max(bounds, key=bounds.get)
         rows[name] = {
             "name": name, "site": site, "dtype": dname, "max_rel_err": err, "max_abs_err": abs_err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
         }
-    log(f"  {site} {dname} errs {json.dumps(errs)} times {json.dumps(t)} finite {finite}")
+    log(f"  {site} {dname} errs {json.dumps(errs)} times {json.dumps(t)} finite {finite} "
+        f"routes {json.dumps(routes)}")
     for r in rows.values():
         log(f"  {json.dumps(r)}")
     bad = {n: e for n, e in errs.items() if not e <= TOL[dname]}
     if bad or not finite:
         fail(f"training kernels at {site} {dname}: rel err over {TOL[dname]}: {bad} "
              f"(finite={finite})")
+    if routes["fwd_lse_tc"] != 1 or routes["bwd_tc"] != 1:
+        fail(f"training kernels at {site} {dname}: not on the tensor-core pair: {routes}")
     return rows
 
 
@@ -563,7 +600,7 @@ def phase_grad(torch):
     _flash_lib.reset_launches()
     card = train_loss_and_grads(torch, feats, "cuda")
     torch.cuda.synchronize()
-    launches = dict(_flash_lib.LAUNCHES)
+    launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
     cpu = train_loss_and_grads(torch, feats, "cpu")
     diff = math.sqrt(sum(float(((card[2][n] - g) ** 2).sum()) for n, g in cpu[2].items()))
     norm = math.sqrt(sum(float((g ** 2).sum()) for g in cpu[2].values()))
@@ -574,7 +611,7 @@ def phase_grad(torch):
         f"{json.dumps(card[1])} cpu {json.dumps(cpu[1])}")
     log(f"[grad] ||g_card - g_cpu|| / ||g_cpu|| = {diff / norm:.3e} over {len(cpu[2])} tensors "
         f"(||g_cpu|| {norm:.4f}); worst tensor {worst[1]} rel {worst[0]:.3e}")
-    log(f"[grad] launches: {json.dumps(launches)}")
+    log(f"[grad] launches: {json.dumps(launches)}; rows 5-6 by design: {json.dumps(routes)}")
     if not (math.isfinite(card[0]) and loss_rel <= GRAD_REL_LOSS):
         fail(f"grad: card loss {card[0]} vs cpu {cpu[0]} (rel {loss_rel}) over {GRAD_REL_LOSS}")
     if not diff <= GRAD_REL * norm:
@@ -584,6 +621,13 @@ def phase_grad(torch):
     stray = [n for n in ("flash_sdpa_folded", "flash_sdpa_folded_v3") if launches[n] != 0]
     if missing or stray:
         fail(f"grad: under grad, not launched {missing}, launched though folded {stray}")
+    check_tc_routes("grad", routes)
+
+
+def check_tc_routes(phase, routes):
+    """Rows 5-6 ran on the tensor-core pair and never on the SIMT pair."""
+    if routes["fwd_lse_simt"] or routes["bwd_simt"] or not (routes["fwd_lse_tc"] and routes["bwd_tc"]):
+        fail(f"{phase}: rows 5-6 not all on the tensor-core pair: {json.dumps(routes)}")
 
 
 # ------------------------------------------------------------------- docks
@@ -660,7 +704,7 @@ def phase_train(torch, work):
     ])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(_flash_lib.LAUNCHES)
+    launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     state, model = res["state"], res["model"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -674,7 +718,7 @@ def phase_train(torch, work):
         f"of which waiting for the batch and its copy {wait}; peak memory allocated {peak} B "
         f"({peak / 2**30:.2f} GiB); wall {wall:.2f} s")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    log(f"[train] launches per step: {json.dumps(per_step)}")
+    log(f"[train] launches per step: {json.dumps(per_step)}; rows 5-6 by design: {json.dumps(routes)}")
     if res["steps"] != list(range(1, TRAIN_STEPS + 1)) or not all(
             math.isfinite(v) for lg in res["logs"] for v in lg.values()):
         fail(f"train: steps {res['steps']} or non-finite losses {res['logs']}")
@@ -683,6 +727,7 @@ def phase_train(torch, work):
     for n in ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa"):
         if launches[n] <= 0:
             fail(f"train: {n} never launched")
+    check_tc_routes("train", routes)
 
     t0 = time.time()
     init = load_model(None, PhysDockConfig.named("medium", num_augmentation_sample=48), seed=0)
@@ -829,14 +874,22 @@ def main():
         r = train_rows[(name, "atom_dit", "float32")]
         rb = train_rows[(name, "atom_dit", "bfloat16")]
         rt = train_rows[(name, "triangle", "float32")]
+        rtb = train_rows[(name, "triangle", "bfloat16")]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": int(per_step[name] * TRAIN_STEPS),
             "max_abs_err": max(x["max_abs_err"] for x in (r, rt)),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "bf16_max_abs_err": rb["max_abs_err"], "bf16_ms": rb["ms"],
-            "triangle_ms": rt["ms"], "triangle_bound_ms": rt["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "before_ms": r["before_ms"],
+            "bf16_max_abs_err": max(x["max_abs_err"] for x in (rb, rtb)), "bf16_ms": rb["ms"],
+            "bf16_bound_ms": rb["bound_ms"], "bf16_bound_by": rb["bound_by"],
+            "bf16_library_ms": rb["library_ms"], "bf16_before_ms": rb["before_ms"],
+            "train_sites": {"triangle": {
+                k: rr[f] for rr, pre in ((rt, ""), (rtb, "bf16_"))
+                for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
+                             ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
+                             ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
+                             ("library_ms", pre + "library_ms"))}},
             "train_launches_per_step": per_step[name],
         })
     log(json.dumps({"kernels": kernels}))

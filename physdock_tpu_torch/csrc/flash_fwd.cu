@@ -19,7 +19,8 @@
 //
 // Two kernels:
 //
-// flash_fwd_tc (every call without stats: the first four) runs both
+// flash_fwd_tc (every call of the first four, and flash_fwd_lse wherever
+// the backward runs on the tensor cores: D = 32 and 64) runs both
 // products on the tensor cores with wgmma (wgmma.cuh).  A block holds two
 // warpgroups of 128 threads, each on 64 query rows of one (b, h), which
 // share every K / V tile and its fp32 split (one warpgroup where S_q <= 64,
@@ -28,7 +29,10 @@
 //     bf16 is m64n64k16, fp32 is m64nBKk8 in TF32 run three times,
 //     hi*hi + hi*lo + lo*hi with hi = cvt.rna.tf32(x), lo = tf32(x - hi)
 //     (one TF32 pass is 3-5e-4 off fp32 at the atom-DiT shape, three are
-//     ~1e-6, and the plain version is held to 1e-4).
+//     ~1e-6, and the plain version is held to 1e-4).  The product and its
+//     rounding (x = s * scale, then + bias, -inf past the keys) are
+//     flash_tc.cuh's `logits`, the routine the backward recomputes them
+//     with, so its x - m is this kernel's to the bit.
 //   - The softmax runs on the accumulator fragments in registers: quad
 //     shuffles for the row max, each thread keeps its partial row sums.
 //   - O += P V: bf16 P goes from the S accumulator straight into the
@@ -52,22 +56,24 @@
 //     (o unnormalized, m, l kept apart, never fused as m + log l, which
 //     loses log l below ulp(1e9) on masked rows), and flash_fwd_combine
 //     merges them.
+//   - With stats (flash_fwd_lse) it stores each query row's fp32 max m
+//     and normalizer l separately ([B, H, S_q], contiguous); split, the
+//     combine stores m = max_z m_z and l = sum_z l_z e^(m_z - m).
 // Bound on this card: at the atom-DiT shape (B=20, H=4, S=2048, D=32) the
 // products are 43 GFLOP (0.043 ms at bf16 peak, 0.087 ms at TF32 peak for
 // one pass), the exponentials 0.34 G (0.086 ms at ~3.9 T/s) and the
 // traffic 0.15 GB (0.045 ms): the TF32 products (fp32) and exp (bf16) bound it.
 //
-// flash_fwd_kernel (calls with stats: flash_fwd_lse, whose m and l feed
-// flash_bwd.cu) is the first, SIMT design, kept until the backward is
-// redesigned with it: one block of 128 threads per (b, h, 64-row query
-// tile), inputs widened to fp32 in shared memory, every product an fp32
-// FMA on the CUDA cores.  flash_bwd.cu recomputes p = exp(s*scale + bias
-// - m) / l in this kernel's exact FMA order, which is how s - m cancels a
-// -1e9 bias exactly; a tensor-core forward sums the logits in another
-// order, and where |s*scale| crosses a rounding boundary of -1e9 (ulp 64)
-// its m could differ from the backward's by an ulp, e^64 in exp.  With
-// stats it stores each query row's fp32 running max and normalizer
-// separately ([B, H, S_q], contiguous).
+// flash_fwd_kernel (flash_fwd_lse at D = 128, and on request) is the
+// first, SIMT design, the forward of the SIMT training pair: one block of
+// 128 threads per (b, h, 64-row query tile), inputs widened to fp32 in
+// shared memory, every product an fp32 FMA on the CUDA cores.  The SIMT
+// backward recomputes p = exp(s*scale + bias - m) / l in this kernel's
+// exact FMA order, which is how s - m cancels a -1e9 bias exactly: where
+// |s*scale| crosses a rounding boundary of -1e9 (ulp 64), a forward that
+// summed the logits in another order could give an m one ulp off, e^64 in
+// exp.  So the pair is chosen as a whole (_flash_lib.py `tc_pair`), never
+// one kernel of it.  It stores m and l as flash_fwd_tc does.
 //
 // Plain C interface, bound with ctypes (physdock_tpu_torch/ops/_flash_lib.py).
 
@@ -76,6 +82,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -86,14 +93,8 @@ constexpr int NT = 128;  // threads per block: 16 (tx) x 8 (ty)
 constexpr int RPT = BQ / 8;   // query rows per thread
 constexpr int CPT = BK / 16;  // key columns per thread
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using flash_tc::from_f;
+using flash_tc::to_f;
 
 struct Params {
   const void* q;
@@ -277,8 +278,37 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
 namespace tc {
 
+using namespace ::flash_tc;
+
 constexpr int NST = 2;  // stages of the K / V / bias ring
-constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// bias rows q0.. x keys k0.. (rows x BK) into a padded row-major tile
+template <typename TB, int BK, int BROW>
+__device__ __forceinline__ void load_bias(TB* dst, const TB* bias, int64_t ld, int rows, int q0,
+                                          int k0, int S_q, int k_end) {
+  constexpr int CH = 16 / static_cast<int>(sizeof(TB));
+  constexpr int CB = BK / CH;
+  for (int idx = threadIdx.x; idx < rows * CB; idx += blockDim.x) {
+    const int r = idx / CB, c = idx % CB;
+    const int kc = k0 + c * CH;
+    const int n = (q0 + r < S_q) ? min(CH, k_end - kc) : 0;
+    const TB* s = bias + (q0 + r) * ld + kc;
+    TB* d = dst + r * BROW + c * CH;
+    if (n == CH && aligned16(s)) {
+      cp_async16(wg::smem_addr(d), s, 16);
+    } else if (n <= 0) {
+      cp_async16(wg::smem_addr(d), bias, 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH; ++e) d[e] = e < n ? s[e] : from_f<TB>(0.f);
+    }
+  }
+}
 
 template <typename T, int D>
 struct Cfg {
@@ -306,141 +336,6 @@ struct Cfg {
            (bias ? nst * wgs * BQ * BROW * static_cast<int>(sizeof(TB)) : 0);
   }
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-// generic-proxy shared-memory writes become visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// rows x C 16-byte chunks of a row-major tile (row stride `ld` elements)
-// into the K-major core layout at dst (chunk idx at idx * 16 bytes, see
-// wgmma.cuh); rows from `valid` on are zero-filled
-template <typename E, int C>
-__device__ __forceinline__ void load_core(unsigned char* dst, const E* src, int64_t ld, int rows,
-                                          int valid, bool async) {
-  constexpr int CH = 16 / static_cast<int>(sizeof(E));
-  for (int idx = threadIdx.x; idx < rows * C; idx += blockDim.x) {
-    const int row = (idx / (8 * C)) * 8 + (idx & 7);
-    const int c = (idx >> 3) % C;
-    const E* s = src + row * ld + c * CH;
-    const bool ok = row < valid;
-    if (async) {
-      cp_async16(wg::smem_addr(dst + idx * 16), ok ? s : src, ok ? 16 : 0);
-    } else {
-      E* d = reinterpret_cast<E*>(dst + idx * 16);
-#pragma unroll
-      for (int e = 0; e < CH; ++e) d[e] = ok ? s[e] : from_f<E>(0.f);
-    }
-  }
-}
-
-// bias rows q0.. x keys k0.. (rows x BK) into a padded row-major tile
-template <typename TB, int BK, int BROW>
-__device__ __forceinline__ void load_bias(TB* dst, const TB* bias, int64_t ld, int rows, int q0,
-                                          int k0, int S_q, int k_end) {
-  constexpr int CH = 16 / static_cast<int>(sizeof(TB));
-  constexpr int CB = BK / CH;
-  for (int idx = threadIdx.x; idx < rows * CB; idx += blockDim.x) {
-    const int r = idx / CB, c = idx % CB;
-    const int kc = k0 + c * CH;
-    const int n = (q0 + r < S_q) ? min(CH, k_end - kc) : 0;
-    const TB* s = bias + (q0 + r) * ld + kc;
-    TB* d = dst + r * BROW + c * CH;
-    if (n == CH && aligned16(s)) {
-      cp_async16(wg::smem_addr(d), s, 16);
-    } else if (n <= 0) {
-      cp_async16(wg::smem_addr(d), bias, 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < CH; ++e) d[e] = e < n ? s[e] : from_f<TB>(0.f);
-    }
-  }
-}
-
-// fp32 tile in place -> tf32 hi; tf32 lo into `lo` (same layout)
-__device__ __forceinline__ void split_inplace(unsigned char* hi, unsigned char* lo, int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16) {
-    float4 x = *reinterpret_cast<float4*>(hi + i);
-    float4 h, l;
-    h.x = __uint_as_float(tf32(x.x)); l.x = __uint_as_float(tf32(x.x - h.x));
-    h.y = __uint_as_float(tf32(x.y)); l.y = __uint_as_float(tf32(x.y - h.y));
-    h.z = __uint_as_float(tf32(x.z)); l.z = __uint_as_float(tf32(x.z - h.z));
-    h.w = __uint_as_float(tf32(x.w)); l.w = __uint_as_float(tf32(x.w - h.w));
-    *reinterpret_cast<float4*>(hi + i) = h;
-    *reinterpret_cast<float4*>(lo + i) = l;
-  }
-}
-
-// fp32 V tile [BK keys][D] (K-major core layout) -> V^T [D][BK] hi and lo,
-// K-major core layout, key j of each group of 8 at position
-// (j & 1) * 4 + (j >> 1): the tf32 register A fragment holds columns
-// (q, q + 4) where the S accumulator holds keys (2q, 2q + 1).  Each thread
-// writes one 16-byte chunk of V^T (row d, 4 positions), so a warp's stores
-// are contiguous
-template <int D, int BK>
-__device__ __forceinline__ void split_transpose_v(const unsigned char* raw, unsigned char* vhi,
-                                                  unsigned char* vlo) {
-  constexpr int C = D / 4;   // chunks per raw V row
-  constexpr int CK = BK / 4; // chunks per V^T row
-  for (int idx = threadIdx.x; idx < D * CK; idx += blockDim.x) {
-    const int d = ((idx >> 3) / CK) * 8 + (idx & 7);
-    const int kc = (idx >> 3) % CK;
-    // positions 4 kc .. 4 kc + 3 hold keys 8 (kc / 2) + 2 i + kc % 2
-    const unsigned char* src = raw + (((kc >> 1) * C + (d >> 2)) * 8 + (kc & 1)) * 16 + (d & 3) * 4;
-    float4 h, l;
-    float* hp = &h.x;
-    float* lp = &l.x;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = *reinterpret_cast<const float*>(src + i * 32);
-      hp[i] = __uint_as_float(tf32(x));
-      lp[i] = __uint_as_float(tf32(x - hp[i]));
-    }
-    *reinterpret_cast<float4*>(vhi + idx * 16) = h;
-    *reinterpret_cast<float4*>(vlo + idx * 16) = l;
-  }
-}
 
 template <typename T, typename TB, int D, int WGS>
 __global__ void __launch_bounds__(WGS * NT) flash_fwd_tc(const Params p) {
@@ -534,57 +429,24 @@ __global__ void __launch_bounds__(WGS * NT) flash_fwd_tc(const Params p) {
     }
     cp_commit();
 
-    // S = Q K^T
+    // S = Q K^T, rounded: the routine the backward recomputes it with
+    const TB* bt = sB + st * bq * BROW;
     float s[BK / 2];
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    wg::fence();
-    if constexpr (F32) {
-#pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        const uint64_t qh = wg::desc(wg::smem_addr(sQ + wq + ks * 256), 128, SBO_QK);
-        const uint64_t ql = wg::desc(wg::smem_addr(sQlo + wq + ks * 256), 128, SBO_QK);
-        const uint64_t kh = wg::desc(wg::smem_addr(kt + ks * 256), 128, SBO_QK);
-        const uint64_t kl = wg::desc(wg::smem_addr(sKlo + ks * 256), 128, SBO_QK);
-        wg::Mma<BK>::ss_tf32(s, qh, kh);
-        wg::Mma<BK>::ss_tf32(s, qh, kl);
-        wg::Mma<BK>::ss_tf32(s, ql, kh);
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        wg::Mma<BK>::ss_bf16(s, wg::desc(wg::smem_addr(sQ + wq + ks * 256), 128, SBO_QK),
-                             wg::desc(wg::smem_addr(kt + ks * 256), 128, SBO_QK));
-    }
-    wg::commit();
-    wg::wait_all();
-    wg::fence_regs(s);
-    if constexpr (F32) {
-      __syncthreads();  // every warp's part of S is done: K is free
-      if (next) load_k(k0 + BK, 0);
-      cp_commit();
-    }
+    logits<F32, D, BK>(
+        s, sQ + wq, sQlo + wq, kt, sKlo, p.scale, ke - k0, bias != nullptr,
+        [&] {
+          if constexpr (F32) {
+            __syncthreads();  // every warp's part of S is done: K is free
+            if (next) load_k(k0 + BK, 0);
+            cp_commit();
+          }
+        },
+        [&](int c, int hh) { return load_pair(bt + (warp * 16 + g + 8 * hh) * BROW + 8 * c + 2 * qd); });
 
     // online softmax on the fragments: rows r0 = 16 warp + g and r0 + 8
-    const TB* bt = sB + st * bq * BROW;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int col = 8 * c + 2 * qd;
-        float2 bb = make_float2(0.f, 0.f);
-        if (bias != nullptr) bb = load_pair(bt + (warp * 16 + g + 8 * hh) * BROW + col);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float x = __fmul_rn(s[4 * c + 2 * hh + j], p.scale);
-          if (bias != nullptr) x = __fadd_rn(x, j ? bb.y : bb.x);
-          if (k0 + col + j >= ke) x = -INFINITY;
-          s[4 * c + 2 * hh + j] = x;
-          mx[hh] = fmaxf(mx[hh], x);
-        }
-      }
-    }
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     float corr[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -681,12 +543,18 @@ __global__ void __launch_bounds__(WGS * NT) flash_fwd_tc(const Params p) {
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
         store_pair(orow + 8 * c + 2 * qd, o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
+      // with stats (the forward of training): the row's max and normalizer
+      if (p.m != nullptr && qd == 0) {
+        p.m[bh * p.S_q + qi] = m[hh];
+        p.l[bh * p.S_q + qi] = l[hh];
+      }
     }
   }
 }
 
 // o[b, h, i, :] from the n_split chunks' partials: the chunk maxima are
-// brought to their common max, and o = sum(o_z w_z) / sum(l_z w_z)
+// brought to their common max, and o = sum(o_z w_z) / sum(l_z w_z); with
+// stats, m = max_z m_z and l = sum(l_z w_z) as well
 template <typename T>
 __global__ void flash_fwd_combine(const Params p, int n_split, int D) {
   const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.S_q;
@@ -706,6 +574,10 @@ __global__ void flash_fwd_combine(const Params p, int n_split, int D) {
     const int64_t bh = row / p.S_q;
     const int b = static_cast<int>(bh / p.H), h = static_cast<int>(bh % p.H);
     static_cast<T*>(p.o)[b * p.o_sb + h * p.o_sh + qi * p.o_ss + d] = from_f<T>(acc * (1.f / l));
+    if (p.m != nullptr && d == 0) {
+      p.m[row] = mz;
+      p.l[row] = l;
+    }
   }
 }
 
@@ -762,11 +634,10 @@ cudaError_t launch_tc(const Params& p, int n_split, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// with stats (p.m set): the SIMT kernel; else the tensor-core kernel over
-// n_split key chunks
+// `simt` (with stats only): the SIMT kernel; else the tensor-core kernel
+// over n_split key chunks
 template <typename T, typename TB>
-cudaError_t dispatch_d(int d, const Params& p, int n_split, cudaStream_t stream) {
-  const bool simt = p.m != nullptr;
+cudaError_t dispatch_d(int d, const Params& p, int n_split, bool simt, cudaStream_t stream) {
   switch (d) {
     case 32: return simt ? launch_simt<T, TB, 32>(p, stream) : launch_tc<T, TB, 32>(p, n_split, stream);
     case 64: return simt ? launch_simt<T, TB, 64>(p, stream) : launch_tc<T, TB, 64>(p, n_split, stream);
@@ -775,12 +646,13 @@ cudaError_t dispatch_d(int d, const Params& p, int n_split, cudaStream_t stream)
   }
 }
 
-cudaError_t dispatch(int dtype, int bias_dtype, int d, const Params& p, int n_split,
+cudaError_t dispatch(int dtype, int bias_dtype, int d, const Params& p, int n_split, bool simt,
                      cudaStream_t s) {
-  if (dtype == 0 && bias_dtype == 0) return dispatch_d<float, float>(d, p, n_split, s);
-  if (dtype == 0 && bias_dtype == 1) return dispatch_d<float, __nv_bfloat16>(d, p, n_split, s);
-  if (dtype == 1 && bias_dtype == 0) return dispatch_d<__nv_bfloat16, float>(d, p, n_split, s);
-  if (dtype == 1 && bias_dtype == 1) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, p, n_split, s);
+  if (simt && (p.m == nullptr || n_split != 1)) return cudaErrorInvalidValue;
+  if (dtype == 0 && bias_dtype == 0) return dispatch_d<float, float>(d, p, n_split, simt, s);
+  if (dtype == 0 && bias_dtype == 1) return dispatch_d<float, __nv_bfloat16>(d, p, n_split, simt, s);
+  if (dtype == 1 && bias_dtype == 0) return dispatch_d<__nv_bfloat16, float>(d, p, n_split, simt, s);
+  if (dtype == 1 && bias_dtype == 1) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, p, n_split, simt, s);
   return cudaErrorInvalidValue;
 }
 
@@ -788,9 +660,9 @@ cudaError_t dispatch(int dtype, int bias_dtype, int d, const Params& p, int n_sp
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements; the
 // last (head-dim / key) axis of every tensor is contiguous.  `m` and `l`
-// are null (forward only: the tensor-core kernel) or fp32 [B, H, S_q]
-// contiguous (forward with stats: the SIMT kernel).  Returns the
-// cudaError_t of the launch (0 = success).
+// are null (forward only) or fp32 [B, H, S_q] contiguous (forward with
+// stats).  `simt` = 1 takes the SIMT kernel (stats only), else the
+// tensor-core kernel.  Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(
     int dtype, int bias_dtype, int d,
     const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
@@ -799,19 +671,21 @@ extern "C" int flash_fwd(
     void* o, int64_t o_sb, int64_t o_sh, int64_t o_ss,
     float* m, float* l,
     const void* bias, int64_t b_sl, int64_t b_ss, int lead,
-    int B, int H, int S_q, int S_k, float scale, void* stream) {
+    int B, int H, int S_q, int S_k, float scale, void* stream, int simt) {
   if (B <= 0 || H <= 0 || S_q <= 0) return 0;
-  if (S_k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (S_k <= 0 || (m == nullptr) != (l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, bias, o, m, l,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            b_sl, b_ss, B, H, S_q, S_k, lead, scale, S_k, nullptr, nullptr, nullptr};
-  return static_cast<int>(dispatch(dtype, bias_dtype, d, p, 1, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      dispatch(dtype, bias_dtype, d, p, 1, simt != 0, static_cast<cudaStream_t>(stream)));
 }
 
 // The tensor-core forward with its keys cut into n_split chunks of
 // key_chunk keys (a multiple of 64; every chunk non-empty): o_part fp32
 // [n_split, B*H, S_q, D], m_part and l_part fp32 [n_split, B*H, S_q], then
-// the combine into o.  Other arguments as flash_fwd's.
+// the combine into o (and, with stats, into m and l).  Other arguments as
+// flash_fwd's.
 extern "C" int flash_fwd_split(
     int dtype, int bias_dtype, int d,
     const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
@@ -820,14 +694,15 @@ extern "C" int flash_fwd_split(
     void* o, int64_t o_sb, int64_t o_sh, int64_t o_ss,
     const void* bias, int64_t b_sl, int64_t b_ss, int lead,
     int B, int H, int S_q, int S_k, float scale,
-    int key_chunk, int n_split, float* o_part, float* m_part, float* l_part, void* stream) {
+    int key_chunk, int n_split, float* o_part, float* m_part, float* l_part, void* stream,
+    float* m, float* l) {
   if (B <= 0 || H <= 0 || S_q <= 0) return 0;
-  if (S_k <= 0 || key_chunk <= 0 || key_chunk % 64 != 0 || n_split < 1 ||
+  if (S_k <= 0 || key_chunk <= 0 || key_chunk % 64 != 0 || n_split < 1 || (m == nullptr) != (l == nullptr) ||
       static_cast<int64_t>(key_chunk) * (n_split - 1) >= S_k)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, bias, o, nullptr, nullptr,
+  Params p{q, k, v, bias, o, m, l,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            b_sl, b_ss, B, H, S_q, S_k, lead, scale, key_chunk, o_part, m_part, l_part};
   return static_cast<int>(
-      dispatch(dtype, bias_dtype, d, p, n_split, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, bias_dtype, d, p, n_split, false, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,6 @@
 // Hopper warpgroup matrix multiply (wgmma) and its shared-memory operand
-// descriptors, for sm_90a; used by flash_fwd.cu.
+// descriptors, for sm_90a; used by flash_fwd.cu and flash_bwd.cu (through
+// flash_tc.cuh).
 //
 // Every operand in shared memory is in the no-swizzle ("interleave")
 // canonical layout: 8 x 16-byte core matrices, each 128 contiguous bytes.
@@ -49,14 +50,24 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N fp32 fragments) += A * B, at the N that flash_fwd.cu uses:
+// D (64 x N fp32 fragments) += A * B, at the N that the kernels use:
 //   ss_bf16:    A, B bf16 K-major descriptors (k16); N 64
+//   ss_bf16_mn: A a bf16 K-major descriptor, B an MN-major one (k16); N 32, 64
 //   rs_bf16_mn: A bf16 registers, B an MN-major descriptor (k16)
 //   ss_tf32:    A, B tf32 K-major descriptors (k8); N 32, 64
 //   rs_tf32:    A tf32 registers, B a K-major descriptor (k8)
 template <int N> struct Mma;
 
 template <> struct Mma<32> {
+  static __device__ __forceinline__ void ss_bf16_mn(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1)
+        : "memory");
+  }
   static __device__ __forceinline__ void rs_bf16_mn(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -87,6 +98,15 @@ template <> struct Mma<32> {
 };
 
 template <> struct Mma<64> {
+  static __device__ __forceinline__ void ss_bf16_mn(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1)
+        : "memory");
+  }
   static __device__ __forceinline__ void ss_bf16(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"

@@ -1,14 +1,20 @@
 """Build, load and launch the hand-written Hopper attention kernels.
 
-Each `.cu` under `csrc/` (`flash_fwd.cu`: the forward, on the tensor
-cores, or with softmax stats on the SIMT kernel; `flash_bwd.cu`: the
-backward) is compiled with `nvcc` into `build/lib<name>.so` at the repo
+Each `.cu` under `csrc/` (`flash_fwd.cu`: the forward, with or without
+softmax stats; `flash_bwd.cu`: the backward) is compiled with `nvcc` into `build/lib<name>.so` at the repo
 root the first time a wrapper launches it, and again when the source or
 a header it includes from `csrc/` is newer (plain C interface, bound with
 ctypes; no PyTorch headers, so a build takes seconds).  `build_all`
 starts one `nvcc` per source at once.  Every wrapper in
 `ops/flash_attention*.py` goes through `launch` or `launch_bwd`, which
 check what the kernels take and raise on anything else.
+
+The forward with stats and the backward come as a pair, because the
+backward recomputes the forward's logits to the bit: `tc_pair` chooses,
+per (dtype, head dim), the tensor-core pair (`flash_fwd_tc` with stats,
+then `dq_dbias_tc` and `dkdv_tc`) or the SIMT pair, and both `launch`
+(with stats) and `launch_bwd` ask it. An explicit `simt=True` takes the
+SIMT pair, for timing it against the tensor cores.
 
 A kernel writes into fresh tensors, so what it returns has no `grad_fn`.
 Called with grad mode on and an input that requires grad, `launch` and
@@ -20,6 +26,7 @@ off.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import re
@@ -44,6 +51,7 @@ HEAD_DIMS = (32, 64, 128)
 BQ = 64  # query rows per forward block (flash_fwd.cu)
 KEY_CHUNK_UNIT = 64  # key chunks of the split forward are multiples of this
 BQ_BWD = 64  # query rows per dq/dbias block (flash_bwd.cu)
+TC_PAIR_DIMS = (32, 64)  # head dims of the tensor-core backward (flash_bwd.cu dispatch_d)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,13 +64,37 @@ LAUNCHES = {
     "flash_fwd_lse": 0,
     "flash_bwd": 0,
 }
+# launches per design of the training pair, to show which one a run took
+ROUTES = {"fwd_lse_tc": 0, "fwd_lse_simt": 0, "bwd_tc": 0, "bwd_simt": 0}
 # per source: nvcc seconds and the -Xptxas -v report
 BUILD_LOG = {name: {"seconds": None, "ptxas": ""} for name in SOURCES}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
+
+
+def tc_pair(dtype: torch.dtype, d: int) -> bool:
+    """Whether the forward with stats and the backward run on the tensor
+    cores (else both on the SIMT kernels): a fixed choice per (dtype, head
+    dim), never a fallback. Both dtypes at D = 32 and 64; D = 128 does not
+    fit the tensor-core backward's registers and shared memory."""
+    return dtype in _DTYPE_CODE and d in TC_PAIR_DIMS
+
+
+def _use_simt(dtype, d: int, simt) -> bool:
+    return (not tc_pair(dtype, d)) if simt is None else bool(simt)
+
+
+def _require_cuda(*tensors) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the flash kernels take CUDA tensors only")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def lib_path(name: str) -> str:
@@ -147,22 +179,24 @@ def _load(name: str) -> ctypes.CDLL:
             lib.flash_fwd.argtypes = (
                 [i32, i32, i32] + strided * 4 + [p, p]
                 + [p, i64, i64, i32]
-                + [i32, i32, i32, i32, ctypes.c_float, p]
+                + [i32, i32, i32, i32, ctypes.c_float, p, i32]
             )
             lib.flash_fwd.restype = i32
             lib.flash_fwd_split.argtypes = (
                 [i32, i32, i32] + strided * 4
                 + [p, i64, i64, i32]
                 + [i32, i32, i32, i32, ctypes.c_float]
-                + [i32, i32, p, p, p, p]
+                + [i32, i32, p, p, p, p, p, p]
             )
             lib.flash_fwd_split.restype = i32
         else:
             lib.flash_bwd.argtypes = (
                 [i32, i32, i32] + strided * 4 + [p, p, p, p] + strided * 3 + [p, p]
-                + [i32, i32, i32, i32, i32, ctypes.c_float, p]
+                + [i32, i32, i32, i32, i32, ctypes.c_float, p, i32]
             )
             lib.flash_bwd.restype = i32
+            lib.flash_bwd_dq_blocks_per_sm.argtypes = [i32, i32, i32, i32]
+            lib.flash_bwd_dq_blocks_per_sm.restype = i32
         _libs[name] = lib
     return _libs[name]
 
@@ -186,18 +220,18 @@ def _bhsd_strides(x: torch.Tensor):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def launch(q, k, v, bias, lead: int, stats: bool = False):
+def launch(q, k, v, bias, lead: int, stats: bool = False, simt=None):
     """Launch the forward kernel on [B, H, S, D] views of q/k/v (any strides
     with a contiguous D axis). `bias` is None or a contiguous [lead, S_q,
     S_k] tensor whose row-block `(b*H + h) % lead` serves (b, h). Returns a
     new [B, H, S_q, D] tensor, stored folded ([B, S, H, D] memory) when q
-    is. Without `stats` this is the tensor-core kernel, over the key
-    chunks of `key_split` (fp32 partials merged by a second kernel); with
-    `stats`, the SIMT kernel, which also returns the fp32 row max m and
-    normalizer l [B, H, S_q]."""
+    is. This is the tensor-core kernel, over the key chunks of `key_split`
+    (fp32 partials merged by a second kernel). With `stats` it also
+    returns the fp32 row max m and normalizer l [B, H, S_q], from the
+    forward of the pair `tc_pair` chooses: the tensor-core kernel or, for
+    the SIMT pair or with `simt=True`, the SIMT kernel."""
     check_no_grad(q, k, v, bias)
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("the flash kernel takes CUDA tensors only")
+    _require_cuda(q, k, v)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"unsupported q/k/v dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -219,7 +253,8 @@ def launch(q, k, v, bias, lead: int, stats: bool = False):
     else:
         o = torch.empty((B, H, S_q, D), device=q.device, dtype=q.dtype)
     if bias is not None:
-        if not bias.is_cuda or bias.dtype not in _DTYPE_CODE:
+        _require_cuda(bias)
+        if bias.dtype not in _DTYPE_CODE:
             raise TypeError(f"bias must be a float32/bfloat16 CUDA tensor, got {bias.dtype}")
         if bias.dim() != 3 or tuple(bias.shape) != (lead, S_q, S_k):
             raise ValueError(f"bias shape {tuple(bias.shape)} != {(lead, S_q, S_k)}")
@@ -230,29 +265,32 @@ def launch(q, k, v, bias, lead: int, stats: bool = False):
     else:
         b_args = (None, 0, 0, 0)
         b_code = 0
+    if simt and not stats:
+        raise ValueError("the SIMT forward runs only with stats")
+    use_simt = stats and _use_simt(q.dtype, D, simt)
     lib = _load("flash_fwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q.device)
     qkvo = (q.data_ptr(), *_bhsd_strides(q), k.data_ptr(), *_bhsd_strides(k),
             v.data_ptr(), *_bhsd_strides(v), o.data_ptr(), *_bhsd_strides(o))
     scale = 1.0 / math.sqrt(D)
+    m = l = None
     if stats:
         m = torch.empty((B, H, S_q), device=q.device, dtype=torch.float32)
         l = torch.empty_like(m)
-        err = lib.flash_fwd(_DTYPE_CODE[q.dtype], b_code, D, *qkvo, m.data_ptr(), l.data_ptr(),
-                            *b_args, B, H, S_q, S_k, scale, stream)
+        ROUTES["fwd_lse_simt" if use_simt else "fwd_lse_tc"] += 1
+    ml = (None, None) if m is None else (m.data_ptr(), l.data_ptr())
+    n_split, key_chunk = (1, S_k) if use_simt else key_split(B, H, S_q, S_k, _sm_count(q.device))
+    if n_split == 1:
+        err = lib.flash_fwd(_DTYPE_CODE[q.dtype], b_code, D, *qkvo, *ml,
+                            *b_args, B, H, S_q, S_k, scale, stream, int(use_simt))
     else:
-        n_split, key_chunk = key_split(B, H, S_q, S_k, _sm_count(q.device))
-        if n_split == 1:
-            err = lib.flash_fwd(_DTYPE_CODE[q.dtype], b_code, D, *qkvo, None, None,
-                                *b_args, B, H, S_q, S_k, scale, stream)
-        else:
-            # one fp32 scratch: o_part [n_split, B*H, S_q, D], then m_part, l_part
-            rows = n_split * B * H * S_q
-            part = torch.empty(rows * (D + 2), device=q.device, dtype=torch.float32)
-            ptr = part.data_ptr()
-            err = lib.flash_fwd_split(
-                _DTYPE_CODE[q.dtype], b_code, D, *qkvo, *b_args, B, H, S_q, S_k, scale,
-                key_chunk, n_split, ptr, ptr + rows * D * 4, ptr + rows * (D + 1) * 4, stream)
+        # one fp32 scratch: o_part [n_split, B*H, S_q, D], then m_part, l_part
+        rows = n_split * B * H * S_q
+        part = torch.empty(rows * (D + 2), device=q.device, dtype=torch.float32)
+        ptr = part.data_ptr()
+        err = lib.flash_fwd_split(
+            _DTYPE_CODE[q.dtype], b_code, D, *qkvo, *b_args, B, H, S_q, S_k, scale,
+            key_chunk, n_split, ptr, ptr + rows * D * 4, ptr + rows * (D + 1) * 4, stream, *ml)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     return (o, m, l) if stats else o
@@ -286,26 +324,47 @@ def key_split(B: int, H: int, S_q: int, S_k: int, sms: int):
     return -(-S_k // key_chunk), key_chunk
 
 
-def bwd_groups(B: int, H: int, S_q: int, device) -> int:
-    """Batch groups of the dq/dbias kernel: enough (h, query tile, group)
-    blocks for two per SM, each group a run of consecutive samples whose
-    fp32 dbias partial it owns alone; never an empty group."""
-    sms = _sm_count(device)
+@functools.lru_cache(maxsize=None)
+def bwd_groups(B: int, H: int, S_q: int, slots: int) -> int:
+    """Batch groups G of the dq/dbias kernel, each a run of consecutive
+    samples whose fp32 dbias partial its blocks own alone; never an empty
+    group. Its H * ceil(S_q/64) * G blocks each walk their samples one
+    after another, so with `slots` blocks on the card at once it takes
+    about ceil(blocks / slots) waves of ceil(B / G) samples: the G of the
+    least product, the smallest of equals (the partials are G * H * S_q *
+    S_k fp32)."""
     tiles = H * -(-S_q // BQ_BWD)
-    g = min(B, max(1, -(-2 * sms // tiles)))
-    per = -(-B // g)
-    return -(-B // per)
+    best = None
+    for g in range(1, B + 1):
+        per = -(-B // g)
+        g = -(-B // per)  # no empty group
+        cost = -(-tiles * g // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
 
 
-def launch_bwd(q, k, v, bias, m, l, delta, do):
+_DQ_BLOCKS: Dict[tuple, int] = {}
+
+
+def dq_slots(dtype_code: int, bias_code: int, d: int, tc: bool, device) -> int:
+    """Blocks of the dq/dbias kernel the card holds at once: its occupancy
+    per SM (asked of the CUDA runtime once per kernel) times the SMs."""
+    key = (dtype_code, bias_code, d, tc)
+    if key not in _DQ_BLOCKS:
+        _DQ_BLOCKS[key] = max(1, _load("flash_bwd").flash_bwd_dq_blocks_per_sm(*key[:3], int(tc)))
+    return _DQ_BLOCKS[key] * _sm_count(device)
+
+
+def launch_bwd(q, k, v, bias, m, l, delta, do, simt=None):
     """Launch the backward kernels: q/k/v/do are [B, H, S, D] views (any
     strides, contiguous D), bias a contiguous [H, S_q, S_k], m/l/delta fp32
-    [B, H, S_q]. Returns (dq, dk, dv) in q's dtype and layout, and dbias
-    fp32 [H, S_q, S_k] summed over B."""
+    [B, H, S_q] (m and l from `launch(stats=True)` with the same `simt`).
+    Returns (dq, dk, dv) in q's dtype and layout, and dbias fp32 [H, S_q,
+    S_k] summed over B. The tensor-core or the SIMT pair, as `tc_pair`
+    chooses or `simt` says."""
     check_no_grad(q, k, v, bias, m, l, delta, do)
-    tensors = dict(q=q, k=k, v=v, bias=bias, m=m, l=l, delta=delta, do=do)
-    if not all(t.is_cuda for t in tensors.values()):
-        raise ValueError("the flash backward kernel takes CUDA tensors only")
+    _require_cuda(q, k, v, bias, m, l, delta, do)
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, do)):
         raise TypeError(f"unsupported q/k/v/do dtypes {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
     if q.dim() != 4:
@@ -333,11 +392,14 @@ def launch_bwd(q, k, v, bias, m, l, delta, do):
         raise ValueError(f"unsupported extent B*H={B * H}, S_q={S_q}, S_k={S_k}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((H, S_q, S_k), device=q.device, dtype=torch.float32)
-    groups = bwd_groups(B, H, S_q, q.device)
+    use_simt = _use_simt(q.dtype, D, simt)
+    codes = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[bias.dtype], D)
+    groups = bwd_groups(B, H, S_q, dq_slots(*codes, not use_simt, q.device))
     part = (torch.empty((groups, H, S_q, S_k), device=q.device, dtype=torch.float32)
             if groups > 1 else dbias)
+    ROUTES["bwd_simt" if use_simt else "bwd_tc"] += 1
     err = _load("flash_bwd").flash_bwd(
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[bias.dtype], D,
+        *codes,
         q.data_ptr(), *_bhsd_strides(q),
         k.data_ptr(), *_bhsd_strides(k),
         v.data_ptr(), *_bhsd_strides(v),
@@ -347,8 +409,7 @@ def launch_bwd(q, k, v, bias, m, l, delta, do):
         dk.data_ptr(), *_bhsd_strides(dk),
         dv.data_ptr(), *_bhsd_strides(dv),
         part.data_ptr(), dbias.data_ptr(),
-        B, H, S_q, S_k, groups, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        B, H, S_q, S_k, groups, 1.0 / math.sqrt(D), _stream(q.device), int(not use_simt),
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {err}")

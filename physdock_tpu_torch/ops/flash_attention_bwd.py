@@ -19,7 +19,10 @@ The row max `m` and normalizer `l` stay separate: with -1e9 mask biases
 `logits - m` cancels exactly, where a fused lse = m + log(l) loses log(l)
 below ulp(1e9) and makes fully masked rows' gradients 10-60x too large.
 The forward is `csrc/flash_fwd.cu` with its stats outputs, the backward
-`csrc/flash_bwd.cu`; a CPU tensor takes the plain version.
+`csrc/flash_bwd.cu`; the two run as a pair, on the tensor cores at head
+dim 32 and 64 and on the SIMT kernels at 128 (`_flash_lib.tc_pair`),
+because the backward recomputes the forward's logits to the bit. A CPU
+tensor takes the plain version.
 """
 
 from __future__ import annotations

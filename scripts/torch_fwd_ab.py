@@ -5,17 +5,19 @@ on one CUDA card, in one process.
     python3 scripts/torch_fwd_ab.py NAME=path/to/flash_fwd.cu [NAME=...]
 
 Each source is built with the port's nvcc flags into build/ab/lib<NAME>.so
-(beside a copy of csrc/wgmma.cuh, which it may include), and prints its
--Xptxas register counts. Then, at each forward call site of `chip_smoke.py`
+(beside copies of the headers of csrc/, which it may include), and prints
+its -Xptxas register counts. Then, at each forward call site of `chip_smoke.py`
 (rows 1-4 at the main dock's shapes, the Pairformer single attention and
 the MSA columns), fp32 and bf16, every version runs in turn (v1, v2, ...,
 v2, v1) through `_flash_lib.launch`: its time as CUDA-graph replays, its
-max abs error against the plain version, and the time of the SIMT kernel
-(the stats path) of the version built from csrc/.
+max abs error against the plain version, whether its output equals the
+first version's bit for bit, and the time of the SIMT kernel (the stats
+path) of the version built from csrc/.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -40,7 +42,8 @@ def build(versions):
 
     out_dir = os.path.join(REPO, "build", "ab")
     os.makedirs(out_dir, exist_ok=True)
-    shutil.copy(os.path.join(REPO, "physdock_tpu_torch", "csrc", "wgmma.cuh"), out_dir)
+    for header in glob.glob(os.path.join(REPO, "physdock_tpu_torch", "csrc", "*.cuh")):
+        shutil.copy(header, out_dir)
     procs = {}
     for name, src in versions.items():
         cu = os.path.join(out_dir, f"{name}.cu")
@@ -85,18 +88,22 @@ def main():
             lead = 0 if bias is None else H
             ref = _flash_lib.sdpa_plain(q, k, v, bias).float()
             reps = 20 if spec["S"] >= 2048 else 50
-            ms, err = {n: [] for n in versions}, {}
+            ms, err, same, first = {n: [] for n in versions}, {}, {}, None
             for name in order:
                 _flash_lib._libs.pop("flash_fwd", None)
                 _flash_lib.build = lambda *_a, _p=libs[name], **_k: _p  # noqa: E731
                 run = lambda: _flash_lib.launch(q, k, v, bias, lead)  # noqa: E731
-                err[name] = float((run().float() - ref).abs().max())
+                out = run()
+                first = out if first is None else first
+                err[name] = float((out.float() - ref).abs().max())
+                same[name] = bool(torch.equal(out, first))
                 ms[name].append(cs.time_graph_ms(torch, run, reps))
             _flash_lib._libs["flash_fwd"] = simt
             simt_ms = cs.time_graph_ms(
                 torch, lambda: _flash_lib.launch(q, k, v, bias, lead, stats=True), reps)
             print(f"{site} {str(dtype).replace('torch.', '')} ms {json.dumps(ms)} "
-                  f"max_abs_err {json.dumps(err)} simt_ms {simt_ms}", flush=True)
+                  f"max_abs_err {json.dumps(err)} bitwise_equal_to_first {json.dumps(same)} "
+                  f"simt_ms {simt_ms}", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ multiple of the 64-row tile), with fully masked rows and the -1e9 / -2e9
 tiers, and is held against its plain version on the same card tensors:
 fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2.  The training pair
 (`flash_fwd_lse`, `flash_bwd`) is held the same way at D = 32, 64 and 128,
-relative to max|plain| (fp32 1e-4, bf16 2e-2); the autograd Functions
+relative to max|plain| (fp32 1e-4, bf16 2e-2), and its tensor-core design
+(D = 32) on ragged lengths, both bias dtypes, batch groups, fully masked
+rows with large logits (the dV-sum identity) and a bitwise-repeatable
+dbias; the autograd Functions
 against autograd through the plain version; and a CUDA wrapper called on
 inputs that require grad, outside a Function, must raise.
 """
@@ -269,3 +272,93 @@ def test_tc_key_split_at_the_trunk_shape(dtype):
     _need_cuda()
     assert _flash_lib.key_split(1, 4, 2048, 2048, _flash_lib._sm_count("cuda"))[0] > 1
     _check_tc(*_tc_case(15, 1, 4, 2048, 2048, 32, dtype))
+
+
+# ------------------------------------------ the tensor-core training pair
+# flash_fwd_tc with stats, then dq_dbias_tc and dkdv_tc (D = 32 and 64):
+# held against the plain versions relative to max|plain| at the limits
+# above, on the folded strides of the training call sites.
+
+
+def _pair_case(seed, b, h, s_q, s_k, dtype, bias_dtype=None, masked_gain=1.0):
+    q, k, v, bias, _, _ = _tc_case(seed, b, h, s_q, s_k, 32, dtype, bias_dtype, folded=True,
+                                   masked_gain=masked_gain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn((b, s_q, h, 32), generator=g, device="cuda").to(dtype).permute(0, 2, 1, 3)
+    return q, k, v, bias, do
+
+
+def _groups(b, h, s_q, dtype, bias_dtype=None):
+    codes = _flash_lib._DTYPE_CODE
+    slots = _flash_lib.dq_slots(codes[dtype], codes[bias_dtype or dtype], 32, True, "cuda")
+    return _flash_lib.bwd_groups(b, h, s_q, slots)
+
+
+def _run_pair(q, k, v, bias, do):
+    _flash_lib.reset_launches()
+    o, m, l = flash_fwd_lse(q, k, v, bias)
+    grads = flash_bwd(q, k, v, bias, o, m, l, do)
+    torch.cuda.synchronize()
+    assert _flash_lib.ROUTES == {"fwd_lse_tc": 1, "fwd_lse_simt": 0, "bwd_tc": 1, "bwd_simt": 0}
+    return (o, m, l), grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-f32", "bf16-bf16"])
+@pytest.mark.parametrize("s_q,s_k", [(1, 63), (63, 63), (65, 65), (300, 300), (65, 300), (300, 63)])
+def test_tc_pair_ragged_lengths_and_dtypes(s_q, s_k, dtypes):
+    """Neither axis a multiple of the 64-row tile, S_q != S_k, folded
+    strides; with B 3 and H 4 the dq/dbias kernel runs three batch groups.
+    (S_k = 1 is left out: there P = 1, so dq, dk and dbias are exactly 0
+    and an error relative to max|plain| compares rounding noise.)"""
+    _need_cuda()
+    dtype = dtypes[0]
+    q, k, v, bias, do = _pair_case(21, 3, 4, s_q, s_k, dtype, dtypes[1])
+    assert _groups(3, 4, s_q, dtype, dtypes[1]) > 1
+    (o, m, l), grads = _run_pair(q, k, v, bias, do)
+    ro, rm, rl = flash_fwd_lse_plain(q, k, v, bias)
+    ref = flash_bwd_plain(q, k, v, bias, o, m, l, do)
+    tol = TOL[dtype]
+    assert _rel_err(o, ro) <= tol, _rel_err(o, ro)
+    for x, r in ((m, rm), (l, rl)):
+        assert bool(((x - r).abs() <= 1e-5 * r.abs()).all())
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        assert x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert _rel_err(x, r) <= tol, (name, _rel_err(x, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tc_pair_masked_rows_with_large_logits(dtype):
+    """Fully masked rows with |s * scale| > 32, where one ulp of a -1e9
+    logit is 64: the backward's logits must be the forward's to the bit, or
+    P there is off by e^64. Every output finite, every P row sums to 1, so
+    sum_j dV[b, h, j] = sum_i dO[b, h, i]."""
+    _need_cuda()
+    q, k, v, bias, do = _pair_case(22, 2, 4, 150, 260, dtype, masked_gain=12.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(32)
+    assert float(s[:, :, :9].abs().max()) > 32
+    (o, m, l), grads = _run_pair(q, k, v, bias, do)
+    assert all(bool(torch.isfinite(x).all()) for x in (o, m, l, *grads))
+    want = do.float().sum(-2)
+    err = float((grads[2].float().sum(-2) - want).abs().max() / want.abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else TOL[dtype]), err
+    ref = flash_bwd_plain(q, k, v, bias, o, m, l, do)
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        assert _rel_err(x, r) <= TOL[dtype], (name, _rel_err(x, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tc_pair_dbias_is_bitwise_repeatable(dtype):
+    """dbias is summed over B with one writer per element and the batch
+    groups added in order: two runs give the same bits."""
+    _need_cuda()
+    q, k, v, bias, do = _pair_case(23, 9, 4, 200, 333, dtype)
+    assert _groups(9, 4, 200, dtype) > 1
+    (o, m, l), first = _run_pair(q, k, v, bias, do)
+    _, second = _run_pair(q, k, v, bias, do)
+    assert torch.equal(first[3], second[3])
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3]))

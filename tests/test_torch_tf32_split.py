@@ -13,6 +13,18 @@ version, and the host side of that kernel:
   non-empty chunks of a multiple of 64 keys.
 - The build: a library is rebuilt when a header its source includes is
   newer, and a failing `nvcc` raises.
+- The tensor-core backward (`csrc/flash_bwd.cu`, `dq_dbias_tc` and
+  `dkdv_tc`): its logits rounded as the forward rounds them, P from the
+  forward's m and l, and dP, dQ, dK and dV each in three TF32 passes, held
+  to `flash_bwd_plain` at S 1024; one pass on any of the four products
+  misses the limit, which is why each takes three.
+- The pairing: `launch(stats=True)` and `launch_bwd` both ask `tc_pair`
+  which design to run, and pass it to the kernels.
+- The dq/dbias kernel's batch groups: the fewest waves times samples per
+  block, no empty group.
+- The dV-sum identity sum_j dV_j = sum_i dO_i (every P row sums to 1), on
+  the plain path and on the emulated tensor-core path, masked rows with
+  large logits included.
 """
 
 import math
@@ -23,6 +35,7 @@ import pytest
 import torch
 
 from physdock_tpu_torch.ops import _flash_lib
+from physdock_tpu_torch.ops.flash_attention_bwd import flash_bwd_plain, flash_fwd_lse_plain
 
 TOL_FP32 = 1e-4  # chip_smoke.py's fp32 limit
 
@@ -173,3 +186,168 @@ def test_a_failing_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="forced failure"):
         _flash_lib.build_all(force=True)
     assert not os.path.exists(_flash_lib.lib_path("k"))
+
+
+# ------------------------------------------------ the tensor-core backward
+
+PRODUCTS = ("dp", "dq", "dk", "dv")
+
+
+def logits_tc(q, k, bias):
+    """flash_tc.cuh `logits` in fp32: three TF32 passes of Q K^T, then
+    fl(s * scale), then fl(+ bias)."""
+    return mm_tf32(q, k.transpose(-1, -2), 3) * (1.0 / math.sqrt(q.shape[-1])) + bias
+
+
+def fwd_lse_tc(q, k, v, bias):
+    """The tensor-core forward with stats: o, the row max m and the sum l."""
+    x = logits_tc(q, k, bias)
+    m = x.amax(-1)
+    p = torch.exp(x - m[..., None])
+    l = p.sum(-1)
+    return mm_tf32(p, v, 3) / l[..., None], m, l
+
+
+def bwd_tc(q, k, v, bias, o, m, l, do, passes):
+    """dq_dbias_tc and dkdv_tc: the forward's logits, P = exp(x - m) * (1/l),
+    dS = P (dP - delta), each product in `passes[name]` TF32 passes."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(logits_tc(q, k, bias) - m[..., None]) * (1.0 / l[..., None])
+    delta = (do * o).sum(-1)
+    ds = p * (mm_tf32(do, v.transpose(-1, -2), passes["dp"]) - delta[..., None])
+    dq = mm_tf32(ds, k, passes["dq"]) * scale
+    dk = mm_tf32(ds.transpose(-1, -2), q, passes["dk"]) * scale
+    dv = mm_tf32(p.transpose(-1, -2), do, passes["dv"])
+    return dq, dk, dv, ds.sum(0)
+
+
+def _rel(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.fixture(scope="module")
+def bwd_case():
+    """[1, 2, 1024, 32] with chip_smoke.py's mask tiers, dO, and the
+    emulated forward's o, m, l; the plain backward at those stats."""
+    q, k, v, bias = _inputs(3, 2, 1024, 1024, 32)
+    q, k, v = (x[None] for x in (q, k, v))
+    do = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    o, m, l = fwd_lse_tc(q, k, v, bias)
+    return (q, k, v, bias, o, m, l, do), flash_bwd_plain(q, k, v, bias, o, m, l, do)
+
+
+def test_three_tf32_passes_hold_the_backward_limit(bwd_case):
+    args, ref = bwd_case
+    out = bwd_tc(*args, dict.fromkeys(PRODUCTS, 3))
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), out, ref):
+        assert bool(torch.isfinite(x).all()), name
+        assert _rel(x, r) <= TOL_FP32 / 20, (name, _rel(x, r))
+
+
+@pytest.mark.parametrize("product", PRODUCTS)
+def test_one_tf32_pass_of_any_backward_product_misses_the_limit(bwd_case, product):
+    args, ref = bwd_case
+    passes = dict.fromkeys(PRODUCTS, 3)
+    passes[product] = 1
+    out = bwd_tc(*args, passes)
+    worst = max(_rel(x, r) for x, r in zip(out, ref))
+    assert worst > TOL_FP32, (product, worst)
+
+
+@pytest.mark.parametrize("path", ["plain", "tc"])
+def test_dv_sums_to_the_do_sum(path):
+    """sum_j dV[b, h, j] = sum_i dO[b, h, i]: each row of P sums to 1, the
+    fully masked rows (their q scaled so that |s * scale| > 32) too."""
+    q, k, v, bias = _inputs(5, 2, 300, 260, 32)
+    q[:, :18] *= 12.0
+    q, k, v = (x[None] for x in (q, k, v))
+    assert float((q[..., :18, :] @ k.transpose(-1, -2)).abs().max()) / math.sqrt(32) > 32
+    do = torch.from_numpy(np.random.default_rng(6).normal(size=q.shape).astype(np.float32))
+    if path == "plain":
+        o, m, l = flash_fwd_lse_plain(q, k, v, bias)
+        dv = flash_bwd_plain(q, k, v, bias, o, m, l, do)[2]
+    else:
+        o, m, l = fwd_lse_tc(q, k, v, bias)
+        dv = bwd_tc(q, k, v, bias, o, m, l, do, dict.fromkeys(PRODUCTS, 3))[2]
+    want = do.sum(-2)
+    assert bool(torch.isfinite(dv).all())
+    assert float((dv.sum(-2) - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_tc_pair_covers_d32_and_d64_in_both_dtypes():
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _flash_lib.tc_pair(dtype, 32) and _flash_lib.tc_pair(dtype, 64)
+        assert not _flash_lib.tc_pair(dtype, 128)
+
+
+@pytest.mark.parametrize("pair,simt", [(True, None), (False, None), (True, True)])
+def test_launch_and_launch_bwd_read_one_pairing(monkeypatch, pair, simt):
+    """Both launchers ask `tc_pair` (unless told `simt`) and hand the same
+    choice to the forward (`simt` flag) and to the backward (`tc` flag);
+    the kernels are replaced by a recorder, so no card is needed."""
+    asked, flags = [], {}
+
+    class Lib:
+        @staticmethod
+        def flash_fwd(*args):
+            flags["fwd_simt"] = args[-1]
+            return 0
+
+        @staticmethod
+        def flash_fwd_split(*args):
+            raise AssertionError("this grid is not split")
+
+        @staticmethod
+        def flash_bwd(*args):
+            flags["bwd_tc"] = args[-1]
+            return 0
+
+        @staticmethod
+        def flash_bwd_dq_blocks_per_sm(*args):
+            return 2
+
+    def fake_pair(dtype, d):
+        asked.append((dtype, d))
+        return pair
+
+    monkeypatch.setattr(_flash_lib, "tc_pair", fake_pair)
+    monkeypatch.setattr(_flash_lib, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(_flash_lib, "_stream", lambda device: 0)
+    monkeypatch.setattr(_flash_lib, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(_flash_lib, "_load", lambda name: Lib)
+    monkeypatch.setattr(_flash_lib, "_DQ_BLOCKS", {})
+    _flash_lib.reset_launches()
+    q = torch.zeros(64, 4, 128, 32)  # 512 query tiles: one key chunk
+    bias = torch.zeros(4, 128, 128)
+    o, m, l = _flash_lib.launch(q, q, q, bias, 4, stats=True, simt=simt)
+    assert o.shape == q.shape and m.shape == l.shape == (64, 4, 128)
+    _flash_lib.launch_bwd(q, q, q, bias, m, l, torch.zeros_like(m), q, simt=simt)
+    use_tc = pair and not simt
+    assert asked == ([] if simt else [(torch.float32, 32)] * 2)
+    assert flags == {"fwd_simt": int(not use_tc), "bwd_tc": int(use_tc)}
+    want = "tc" if use_tc else "simt"
+    assert _flash_lib.ROUTES == {"fwd_lse_tc": 0, "fwd_lse_simt": 0, "bwd_tc": 0, "bwd_simt": 0,
+                                 f"fwd_lse_{want}": 1, f"bwd_{want}": 1}
+    _flash_lib.launch(q, q, q, bias, 4)  # without stats: always the tensor cores
+    assert flags["fwd_simt"] == 0 and len(asked) == (0 if simt else 2)
+
+
+@pytest.mark.parametrize("shape,slots,want", [
+    ((48, 4, 2048), 2 * 132, 2),   # atom DiT, 2 blocks per SM: one wave of 256 blocks
+    ((48, 4, 2048), 3 * 132, 3),   # atom DiT, 3 per SM: one wave of 384
+    ((256, 4, 256), 2 * 132, 16),  # triangle: 256 blocks of 16 samples
+    ((1, 4, 2048), 264, 1),
+    ((3, 4, 200), 264, 3),
+    ((9, 4, 200), 264, 9),
+])
+def test_bwd_groups_take_the_fewest_sample_waves(shape, slots, want):
+    b, h, s_q = shape
+    g = _flash_lib.bwd_groups(b, h, s_q, slots)
+    assert g == want
+    per = -(-b // g)
+    assert (g - 1) * per < b <= g * per  # every group non-empty
+    tiles = h * -(-s_q // 64)
+    cost = -(-tiles * g // slots) * per
+    for other in range(1, b + 1):
+        p = -(-b // other)
+        assert cost <= -(-tiles * -(-b // p) // slots) * p
