@@ -20,7 +20,10 @@ exits non-zero (no phase is caught):
                  <= 1e-4 with TF32 off, bf16 <= 2e-2); kernel, plain and
                  SDPA times, and the same-call time of the SIMT kernel at
                  the same inputs (the stats path, `before_ms`), each the
-                 device time of CUDA-graph replays
+                 device time of CUDA-graph replays; and row 1 at the
+                 batched screen's atom-DiT site (B 80 = 20 samples x 4
+                 systems sample-major, H 4, S 1920, one bias per system:
+                 lead 16)
   4. kernels (training) -- the kernels at the shapes and strides the
                  medium train run gives them (crop 256/2048, 48 samples):
                  flash_sdpa_grouped at the token DiT (B 48, H 16, S 256,
@@ -75,9 +78,27 @@ exits non-zero (no phase is caught):
                  never; seconds per step (the wait for the batch and its
                  copy included, and also shown alone), peak memory,
                  launches per step
- 10. summary  -- the per-kernel JSON line (six rows; launches from the
+ 10. lockstep -- two ligand-systems of one shape (demo receptor 6kzd, two
+                 demo SMILES, crop 256/2048, 20 poses each, guided, with a
+                 different adaptive factor each) for 4 steps through the
+                 batched sampler with caller-given noise, and each through
+                 the single-system sampler with its slice of that noise:
+                 coordinates within 1e-2 A at every step
+ 11. screen   -- the screening CLI in process: the 8 SMILES of
+                 demo/screening/demo_db.txt into 6kzd.pkl.gz with the main
+                 dock's settings but 20 poses kept (max_samples = poses
+                 per round), once one ligand at a time
+                 (--vs_batch_size 1) and once in groups
+                 (--vs_batch_size 4), launch and bias-expansion counters
+                 reset before each and read after; no error entry, 20
+                 poses per ligand, finite coordinates in the written PDB
+                 and SDF files, no bias expanded in the batched screen, and
+                 row 1 launched as often per group-round as per
+                 single-ligand round; ligands/s and poses/s of both
+ 12. summary  -- the per-kernel JSON line (six rows; launches from the
                  main dock for rows 1-4 and from the train run for rows
-                 5-6), the card line, and last the {"ok": true, ...} line
+                 5-6, and for rows 1-4 those of both screens), the card
+                 line, and last the {"ok": true, ...} line
 
 It imports nothing of JAX, starts no process other than nvcc and
 nvidia-smi (the train run's prefetch is a thread, stopped when it ends),
@@ -87,6 +108,7 @@ package is not beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -97,6 +119,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SYSTEMS = os.path.join(REPO, "demo", "redocking", "Posebusters_subset")
+SCREEN = os.path.join(REPO, "demo", "screening")
 H100_BYTES_PER_S = 3.35e12
 # H100 SXM, dense, tensor cores (fp32 runs as TF32, counted as one pass)
 TC_PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
@@ -199,6 +222,11 @@ def kernel_cases():
     ]
 
 
+# row 1 at the batched screen's atom-DiT site: 4 systems of 20 samples,
+# rows sample-major, one [4, S, S] bias per system
+SCREEN_SITE = ("flash_sdpa_folded_v3", dict(layout="folded", B=80, H=4, S=1920, D=32, systems=4))
+
+
 def heads_view(x, layout, H):
     """The [..., H, S, D] view the attention modules pass: heads split
     from [B, S, H*D] ("heads") or [S, H*D] ("heads_single"). Other
@@ -209,10 +237,11 @@ def heads_view(x, layout, H):
 
 
 def make_inputs(torch, spec, dtype, seed):
-    """q/k/v in the call site's layout and a [H, S, S] bias with the two
-    mask tiers: random keys at -1e9, whole rows at -1e9 (fully masked),
-    and the last eighth of the keys at -2e9 on top (pad tier); no bias
-    where the site has none (`bias=False`)."""
+    """q/k/v in the call site's layout and a [H, S, S] bias ([G, H, S, S]
+    for a site of G `systems`) with the two mask tiers: random keys at
+    -1e9, whole rows at -1e9 (fully masked), and the last eighth of the
+    keys at -2e9 on top (pad tier); no bias where the site has none
+    (`bias=False`)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, H, S, D = spec["B"], spec["H"], spec["S"], spec["D"]
     layout = spec["layout"]
@@ -222,7 +251,8 @@ def make_inputs(torch, spec, dtype, seed):
                for _ in range(3))
     if not spec.get("bias", True):
         return q, k, v, None
-    bias = torch.randn((H, S, S), generator=g, device="cuda")
+    bias = torch.randn(((spec["systems"],) if "systems" in spec else ()) + (H, S, S),
+                       generator=g, device="cuda")
     mask = torch.rand((S, S), generator=g, device="cuda") < 0.2
     mask[: S // 16] = True  # fully masked rows
     pad = torch.zeros((S, S), dtype=torch.bool, device="cuda")
@@ -282,11 +312,12 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
 
     q, k, v, bias = make_inputs(torch, spec, dtype, seed=len(name) if seed is None else seed)
     H = spec["H"]
+    G = spec.get("systems", 1)
     if spec["layout"] == "folded":
         wrapper = flash_sdpa_folded_v3 if name == "flash_sdpa_folded_v3" else flash_sdpa_folded
         kern = lambda: wrapper(q, k, v, bias, H)  # noqa: E731
         qs, ks, vs = (split_view(x, H) for x in (q, k, v))
-        plain = lambda: _flash_lib.sdpa_plain(qs, ks, vs, bias)  # noqa: E731
+        plain = lambda: _flash_lib.shared_plain(qs, ks, vs, bias)  # noqa: E731
         to_split = lambda o: split_view(o, H)  # noqa: E731
     else:
         wrapper = flash_sdpa_grouped if name == "flash_sdpa_grouped" else flash_sdpa
@@ -300,12 +331,18 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     err = float((o_kernel - o_plain).abs().max())
     finite = bool(torch.isfinite(o_kernel).all())
     mask_b = None if bias is None else bias.to(q.dtype)
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_b)  # noqa: E731
+    # the library call over [B/G, G, ...] views, each system's bias broadcast
+    ql, kl, vl = (x.unflatten(0, (-1, G)) if G > 1 else x for x in (qs, ks, vs))
+    lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask_b)  # noqa: E731
     # the SIMT kernel on the same inputs: the forward with stats
     B, S, D = spec["B"], spec["S"], spec["D"]
     qf, kf, vf = (x.reshape(-1, H, x.shape[-2], D) for x in (qs, ks, vs))
-    before = lambda: _flash_lib.launch(  # noqa: E731
-        qf, kf, vf, bias, 0 if bias is None else H, stats=True)
+    b3, lead = (None, 0) if bias is None else (bias.reshape(-1, S, S), G * H)
+    before = lambda: _flash_lib.launch(qf, kf, vf, b3, lead, stats=True, simt=True)  # noqa: E731
+    _flash_lib.reset_launches()
+    before()
+    if _flash_lib.ROUTES["fwd_lse_simt"] != 1:
+        fail(f"{name}: before_ms would not time the SIMT kernel: {_flash_lib.ROUTES}")
     reps = 20 if spec["S"] >= 2048 else 50
     ms = time_graph_ms(torch, kern, reps)
     before_ms = time_graph_ms(torch, before, reps)
@@ -316,7 +353,8 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     # q, k, v, o, bias once each; the products on the tensor cores; one
     # exponential per logit
     bounds = {
-        "bytes": (4 * B * H * S * D + (0 if bias is None else H * S * S)) * isz / H100_BYTES_PER_S * 1e3,
+        "bytes": (4 * B * H * S * D + (0 if bias is None else G * H * S * S)) * isz
+        / H100_BYTES_PER_S * 1e3,
         "operations": 4 * B * H * S * S * D / TC_PEAK_FLOPS[dname] * 1e3,
         "exp": B * H * S * S / EXP_PER_S * 1e3,
     }
@@ -326,6 +364,7 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
         "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bounds[bound_by], "bound_by": bound_by,
         "shape": {k: spec[k] for k in ("B", "H", "S", "D")}, "layout": spec["layout"],
+        "lead": lead,
     }
     log(f"  {json.dumps(row)}")
     if not finite or err > TOL[dname]:
@@ -340,6 +379,11 @@ def phase_kernels(torch):
             r = run_kernel_case(torch, name, spec, dtype)
             r["replaces"] = replaces
             rows[(name, r["dtype"])] = r
+    name, spec = SCREEN_SITE
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"  {name} at the batched screen's site:")
+        r = run_kernel_case(torch, name, spec, dtype, seed=spec["B"] + spec["S"])
+        rows[(name, "screen", r["dtype"])] = r
     return rows
 
 
@@ -670,6 +714,204 @@ def phase_main(work):
                 os.path.join(work, "main"), 256, 2048)
 
 
+# -------------------------------------------------------------- screening
+
+# max_samples equal to the poses per round, as in the reference CLI's
+# defaults: the round protocol then delivers exactly max_samples poses,
+# where with 40 it delivers between 20 and 40 (accepted poses are not
+# backfilled once a round's worth passed the chirality check)
+SCREEN_ROUNDS, SCREEN_POSES, SCREEN_MAX = 2, 20, 20
+
+
+def screen_flags(out, batch_size):
+    """The screening CLI's flags: the main dock's settings, 20 poses kept."""
+    feats = os.path.join(SCREEN, "features")
+    return [
+        "-i", os.path.join(SCREEN, "6kzd.pkl.gz"), "-s", os.path.join(SCREEN, "demo_db.txt"),
+        "-o", out, "--params", PARAMS, "--model_name", "toy",
+        "--crop_size", "256", "--atom_crop_size", "2048",
+        "--msa_features_dir", os.path.join(feats, "msa_features"),
+        "--uniprot_msa_features_dir", os.path.join(feats, "uniprot_msa_features"),
+        "--steps", "40", "--max_rounds", str(SCREEN_ROUNDS),
+        "--num_samples_per_round", str(SCREEN_POSES), "--max_samples", str(SCREEN_MAX),
+        "--num_confs", "64", "--pocket_cutoff", "6.0", "--use_pocket", "--use_key_res",
+        "--enable_physics_correction", "--enable_ranking", "--device", "cuda",
+        "--vs_batch_size", str(batch_size),
+    ]
+
+
+LOCKSTEP_STEPS, LOCKSTEP_ATOL = 4, 1e-2
+
+
+def phase_lockstep(torch):
+    """Two demo ligands of one shape group through the batched sampler and,
+    each with its slice of the same noise, through the single-system one."""
+    import argparse
+
+    import numpy as np
+
+    from physdock_tpu_torch.cli import common
+    from physdock_tpu_torch.model.compact import compact_batch_np
+    from physdock_tpu_torch.model.diffusion import (
+        sample_diffusion,
+        sample_diffusion_batched,
+        stack_guidances,
+        stacked_conditioning,
+    )
+    from physdock_tpu_torch.utils.io import load_txt
+
+    p = argparse.ArgumentParser()  # the screening CLI's flags, for its pipeline
+    for flag in ("-i", "-s", "--vs_batch_size"):
+        p.add_argument(flag)
+    common.add_common_flags(p)
+    args = p.parse_args(screen_flags(os.path.join(REPO, "build", "unused"), 2))
+    pipe = common.build_pipeline(args)
+    s = pipe.s
+    loaded = {}
+    for smi in load_txt(os.path.join(SCREEN, "demo_db.txt")):
+        feats, meta = pipe.featurizer.load(args.i, remove_ligand=True, smi=smi, num_msa_rounds=1)
+        sig = tuple(sorted((k, np.shape(v)) for k, v in feats.items()))
+        loaded.setdefault(sig, []).append((feats, meta))
+        if len(loaded[sig]) == 2:
+            items = loaded[sig]
+            break
+    else:
+        fail("lockstep: no two demo ligands share a shape group")
+    l_max = max(len(m["ligand_atom_idx"]) for _, m in items)
+    guides = []
+    for feats, meta in items:
+        g, confs = pipe._build_guidance(feats, meta, pad_atoms=l_max)
+        pos = np.zeros((s.max_samples, l_max, 3), np.float32)
+        pos[:, : confs.shape[1]] = confs[: s.max_samples]
+        guides.append(dataclasses.replace(
+            g, conf_pos=torch.as_tensor(pos, device="cuda"),
+            conf_dists=torch.as_tensor(np.linalg.norm(pos[:, :, None] - pos[:, None], axis=-1),
+                                       device="cuda"),
+            conf_mask=torch.ones(s.max_samples, device="cuda")))
+    batches = [pipe._to_device(compact_batch_np(f)) for f, _ in items]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    n_atoms = stacked["ref_pos"].shape[-2]
+    rng = np.random.default_rng(0)
+    T, S = LOCKSTEP_STEPS, SCREEN_POSES
+    rot = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0] for _ in range(2 * T * S)])
+    noise = {
+        "x_init_z": rng.normal(size=(2, S, n_atoms, 3)),
+        "aug_R": rot.reshape(2, T, S, 3, 3),
+        "aug_t": rng.normal(size=(2, T, S, 3)),
+        "churn_z": rng.normal(size=(2, T, S, n_atoms, 3)),
+    }
+    noise = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda") for k, v in noise.items()}
+    # eta and 100: at 4 steps (rho 1000: sigma 2560, 75, 2.2, 0.064) the
+    # second step matches conformers in one system and relaxes in the other
+    factors = [s.eta, 100.0]
+    kw = dict(num_sample=S, steps=T, gamma_0=s.gamma_0, gamma_min=s.gamma_min,
+              noise_scale_lambda=s.noise_scale_lambda, step_scale_eta=s.step_scale_eta,
+              karras_rho=s.rho, mmff_iters=s.mmff_iters, align_ref_pos=True,
+              return_trajectory=True)
+    model = pipe.model
+    with torch.no_grad():
+        conds = stacked_conditioning(model, stacked)
+        batched = sample_diffusion_batched(
+            model, stacked, guidance=stack_guidances(guides), mmff_gamma_0_factor=factors,
+            conditioning=conds, noise_override=noise, **kw)
+        singles = [sample_diffusion(
+            model, batches[b], guidance=guides[b], mmff_gamma_0_factor=factors[b],
+            conditioning=tuple(c[b] for c in conds),
+            noise_override={k: v[b] for k, v in noise.items()}, **kw) for b in range(2)]
+    torch.cuda.synchronize()
+    errs = [[float((batched[b, i] - singles[b][i]).abs().max()) for i in range(T)]
+            for b in range(2)]
+    finite = bool(torch.isfinite(batched).all())
+    log(f"[lockstep] 2 systems of {n_atoms} atoms (ligands {[int(g.ligand_mask.sum()) for g in guides]}"
+        f" atoms, padded to {l_max}), {S} poses, factors {factors}: max abs err per step "
+        f"batched vs single (A): {json.dumps(errs)}; finite {finite}")
+    if not finite or not max(max(e) for e in errs) <= LOCKSTEP_ATOL:
+        fail(f"lockstep: batched and single-system samplers differ by more than {LOCKSTEP_ATOL} A")
+    return errs
+
+
+def _coords_finite(path):
+    """Every coordinate of a written PDB (ATOM/HETATM columns 31-54) or SDF
+    file is finite."""
+    import numpy as np
+
+    if path.endswith(".sdf"):
+        from physdock_tpu_torch.data.mol import read_sdf
+
+        mol = read_sdf(path)
+        return mol.num_atoms > 0 and bool(np.all(np.isfinite(mol.coords)))
+    with open(path) as f:
+        xyz = [[float(ln[30 + 8 * j: 38 + 8 * j]) for j in range(3)]
+               for ln in f if ln.startswith(("ATOM", "HETATM"))]
+    return len(xyz) > 0 and bool(np.all(np.isfinite(xyz)))
+
+
+def phase_screen(torch, work, card):
+    """Both screening modes; returns {batch size: launches}."""
+    from physdock_tpu_torch.cli import screening
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.ops import _flash_lib
+    from physdock_tpu_torch.utils.io import load_json, load_txt
+
+    smiles = load_txt(os.path.join(SCREEN, "demo_db.txt"))
+    cfg = PhysDockConfig.named("toy").model
+    row1_per_round = 40 * 2 * cfg.no_blocks_atom  # steps x (encoder + decoder blocks)
+    runs = {}
+    for bs in (1, 4):
+        out = os.path.join(work, f"screen_vs{bs}")
+        torch.cuda.synchronize()
+        _flash_lib.reset_launches()
+        t0 = time.time()
+        res = screening.main(screen_flags(out, bs))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, expansions = dict(_flash_lib.LAUNCHES), dict(_flash_lib.BIAS_EXPANSIONS)
+        bad = [r for r in res if "error" in r or r.get("num_poses") != SCREEN_MAX]
+        if len(res) != len(smiles) or bad:
+            fail(f"screen vs{bs}: {len(res)} results for {len(smiles)} SMILES; "
+                 f"errors or pose counts other than {SCREEN_MAX}: {bad}")
+        md5 = load_json(os.path.join(out, "smiles_to_md5.json"))
+        for r in res:
+            d = os.path.join(out, md5[r["smiles"]])
+            for name in ("pred_rank0.pdb", "ligand_rank0.sdf"):
+                if not os.path.exists(os.path.join(d, name)):
+                    fail(f"screen vs{bs}: {r['smiles']}: {name} missing")
+            written = [f for f in os.listdir(d) if f.endswith((".pdb", ".sdf")) and "rank" in f]
+            if not all(_coords_finite(os.path.join(d, f)) for f in written):
+                fail(f"screen vs{bs}: {r['smiles']}: a non-finite coordinate in {written}")
+        ligand_rounds = sum(r["rounds"] for r in res)
+        group_rounds = sum(r["rounds"] / r.get("vs_batch_size", 1) for r in res)
+        sampled = SCREEN_POSES * sum(r["rounds"] for r in res)
+        delivered = sum(r["num_poses"] for r in res)
+        t = {k: round(sum(r["timings"].get(k, 0.0) for r in res), 3)
+             for k in ("load_s", "upload_s", "guidance_s", "rounds_s")}
+        if bs > 1:  # group-level times, shared by the group's results
+            for k in ("guidance_s", "rounds_s"):
+                t[k] = round(sum(r["timings"][k] / r["vs_batch_size"] for r in res), 3)
+        log(f"[screen] --vs_batch_size {bs}: {len(res)} ligands in {wall:.2f} s: "
+            f"{len(res) / wall:.4f} ligands/s, {delivered / wall:.3f} poses/s delivered "
+            f"({delivered} poses), {sampled / wall:.3f} poses/s sampled; rounds per ligand "
+            f"{[r['rounds'] for r in res]}, groups {sorted(set(r.get('vs_batch_size', 1) for r in res))} "
+            f"({card})")
+        log(f"[screen]   summed timings (s): {json.dumps(t)}; per ligand load_s "
+            f"{[r['timings']['load_s'] for r in res]}; atoms padded "
+            f"{[r['n_atoms_padded'] for r in res]}")
+        log(f"[screen]   launches: {json.dumps(launches)}; bias expansions {json.dumps(expansions)}; "
+            f"row 1 per {'group-' if bs > 1 else 'ligand '}round "
+            f"{launches['flash_sdpa_folded_v3'] / group_rounds:.1f} over {group_rounds:g} "
+            f"({ligand_rounds} ligand rounds)")
+        if launches["flash_sdpa_folded_v3"] != row1_per_round * group_rounds:
+            fail(f"screen vs{bs}: row 1 launched {launches['flash_sdpa_folded_v3']} times, "
+                 f"not {row1_per_round} per round over {group_rounds} rounds")
+        if bs > 1 and any(expansions.values()):
+            fail(f"screen vs{bs}: biases expanded: {expansions}")
+        missing = [k for k, _, _ in kernel_cases() if launches[k] <= 0]
+        if missing:
+            fail(f"screen vs{bs}: never launched {missing}")
+        runs[bs] = launches
+    return runs
+
+
 # ------------------------------------------------------------------- train
 
 TRAIN_STEPS = 3
@@ -847,6 +1089,13 @@ def main():
     per_step = phase_train(torch, work)
     log(f"[train] done ({time.time() - t0:.2f} s)")
 
+    t0 = time.time()
+    phase_lockstep(torch)
+    log(f"[lockstep] done ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    screen_launches = phase_screen(torch, work, card)
+    log(f"[screen] done ({time.time() - t0:.2f} s)")
+
     kernels = []
     for name, replaces, _ in kernel_cases():
         r, rb = rows[(name, "float32")], rows[(name, "bfloat16")]
@@ -869,7 +1118,16 @@ def main():
                                     ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
                                     ("library_ms", pre + "library_ms"))}
                 for n, site, _ in TRAIN_FWD_SITES if n == name},
+            "screen_launches": {f"vs{bs}": n[name] for bs, n in screen_launches.items()},
         })
+        if name == SCREEN_SITE[0]:
+            kernels[-1]["screen_site"] = {
+                k: rows[(name, "screen", dt)][f]
+                for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
+                for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
+                             ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
+                             ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
+                             ("library_ms", pre + "library_ms"), ("lead", pre + "lead"))}
     for name, replaces, source in TRAIN_KERNELS:
         r = train_rows[(name, "atom_dit", "float32")]
         rb = train_rows[(name, "atom_dit", "bfloat16")]

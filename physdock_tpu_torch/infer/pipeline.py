@@ -1,20 +1,28 @@
-"""Guided redocking pipeline (port of `physdock_tpu/infer/pipeline.py`:
-`DockingPipeline.dock`, `_dock_loaded`, `_build_guidance`, `_postprocess`).
+"""Guided redocking and virtual screening (port of
+`physdock_tpu/infer/pipeline.py`: `DockingPipeline.dock`, `_dock_loaded`,
+`_build_guidance`, `_postprocess`, `screen`, `_dock_ligand_batch`,
+`_run_ligand_group`, `_run_group_batched`).
 
 Host-side orchestration around the model on one device: featurize in
 process, run the round loop (trunk -> EDM sampler with physics guidance ->
 chirality accept/reject, `infer/rounds.RoundProtocol`), then align to the
 GT pocket frame, rank and write PDB/SDF.  The round loop calls the trunk
-and the sampler directly.  Not ported here: `dock_many`, screening,
-confidence scoring, side-chain relaxation and the pose-check report.
+and the sampler directly.  Screening docks a SMILES list into one
+receptor, one ligand at a time or in groups of same-shaped ligand-systems
+that share one sampler pass (`model/diffusion.sample_diffusion_batched`);
+the trunk runs once per system and round.  Not ported here: `dock_many`,
+the featurizer worker, confidence scoring, side-chain relaxation and the
+pose-check report.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
-from typing import Dict, Optional
+import traceback
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,10 +34,24 @@ from physdock_tpu_torch.infer import ranking as ranking_lib
 from physdock_tpu_torch.infer import writers
 from physdock_tpu_torch.infer.rounds import RoundProtocol, pairwise
 from physdock_tpu_torch.model.compact import compact_batch_np, compact_msa_np
-from physdock_tpu_torch.model.diffusion import PhysicsGuidance, sample_diffusion
+from physdock_tpu_torch.model.diffusion import (
+    PhysicsGuidance,
+    gather_ligand,
+    sample_diffusion,
+    sample_diffusion_batched,
+    stack_guidances,
+    stacked_conditioning,
+)
 from physdock_tpu_torch.model.forcefield import build_ligand_ff, chirality_correct
 from physdock_tpu_torch.model.physdock import PhysDock
-from physdock_tpu_torch.utils.io import dump_json
+from physdock_tpu_torch.utils.io import dump_json, md5_string
+
+
+def _failed(smi: str, e: Exception) -> Dict:
+    """A screened ligand's result when docking it raised; the traceback
+    goes to stderr."""
+    traceback.print_exc(file=sys.stderr)
+    return {"smiles": smi, "error": f"{type(e).__name__}: {e}"}
 
 
 @dataclasses.dataclass
@@ -85,10 +107,12 @@ class DockingPipeline:
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return arrays_to_device(arrays, self.device)
 
-    def _build_guidance(self, batch, meta):
+    def _build_guidance(self, batch, meta, pad_atoms: Optional[int] = None):
         """Returns (PhysicsGuidance template, original conformer bank); the
         guidance's conformer arrays are bank-shaped ([max_samples, L, ...])
-        and are swapped per round."""
+        and are swapped per round. pad_atoms pads the ligand axis to a
+        common size for a group of ligands (padded entries: index past the
+        end, mask 0)."""
         mol = meta.get("ref_mol")
         lig_idx = np.asarray(meta["ligand_atom_idx"])
         if mol is None or len(lig_idx) == 0 or mol.num_atoms != len(lig_idx):
@@ -110,14 +134,18 @@ class DockingPipeline:
             device=self.device,
         )
         n_atoms = batch["ref_pos"].shape[-2]
-        L = mol.num_atoms
+        L = pad_atoms or mol.num_atoms
+        if L < mol.num_atoms:
+            raise ValueError(f"pad_atoms {L} < {mol.num_atoms} ligand atoms")
         idx = np.full(L, n_atoms, np.int64)  # pad -> out-of-range (dropped)
         idx[: len(lig_idx)] = lig_idx
+        lig_mask = np.zeros(L, np.float32)
+        lig_mask[: mol.num_atoms] = 1.0
         K = self.s.max_samples
         dev = self.device
         guidance = PhysicsGuidance(
             ligand_idx=torch.as_tensor(idx, device=dev),
-            ligand_mask=torch.ones(L, device=dev),
+            ligand_mask=torch.as_tensor(lig_mask, device=dev),
             conf_pos=torch.zeros((K, L, 3), device=dev),
             conf_dists=torch.zeros((K, L, L), device=dev),
             conf_mask=torch.zeros((K,), device=dev),
@@ -268,3 +296,164 @@ class DockingPipeline:
                 dump_json({"top5_rmsd": lig_rmsds[:5], "rank_order": order},
                           os.path.join(output_dir, "top5_rmsd.json"))
         return result
+
+    # ------------------------------------------------------------ screening
+
+    def screen(self, system, smiles_list: List[str], output_dir: str,
+               write_outputs: bool = True, batch_size: int = 1) -> List[Dict]:
+        """Virtual screening: dock each SMILES into the receptor's pocket,
+        outputs under `output_dir/md5(smi)`. batch_size > 1 docks that many
+        ligands at a time, each group of same-shaped ligand-systems in one
+        sampler pass. A ligand that fails gives {"smiles", "error"}."""
+        results: List[Dict] = []
+        smi_map = {smi: md5_string(smi) for smi in smiles_list}
+        if batch_size > 1:
+            for i in range(0, len(smiles_list), batch_size):
+                results += self._dock_ligand_batch(system, smiles_list[i: i + batch_size],
+                                                   output_dir, smi_map, write_outputs)
+        else:
+            for smi in smiles_list:
+                results.append(self._screen_one(system, smi, output_dir, smi_map,
+                                                write_outputs))
+        if write_outputs:
+            dump_json(smi_map, os.path.join(output_dir, "smiles_to_md5.json"))
+        return results
+
+    def _screen_one(self, system, smi, output_dir, smi_map, write_outputs) -> Dict:
+        """Dock one SMILES on its own; its failure is its result, the
+        screen goes on."""
+        try:
+            r = self.dock(system, os.path.join(output_dir, smi_map[smi]), remove_ligand=True,
+                          smi=smi, write_outputs=write_outputs)
+        except Exception as e:  # one bad ligand must not end the screen
+            return _failed(smi, e)
+        r["smiles"] = smi
+        return r
+
+    def _dock_ligand_batch(self, system, smiles: List[str], output_dir: str,
+                           smi_map: Dict[str, str], write_outputs: bool) -> List[Dict]:
+        """Featurize a batch of SMILES against one receptor, group them by
+        the shapes of their features and dock each group in one pass."""
+        t_start = time.time()
+        results: List[Dict] = []
+        groups: Dict[tuple, list] = {}
+        for smi in smiles:
+            t0 = time.time()
+            try:
+                feats, meta = self.featurizer.load(system, remove_ligand=True, smi=smi,
+                                                   num_msa_rounds=max(1, self.s.max_rounds))
+            except Exception as e:  # one bad ligand must not end the screen
+                results.append(_failed(smi, e))
+                continue
+            sig = tuple(sorted((k, np.shape(v)) for k, v in feats.items()))
+            groups.setdefault(sig, []).append((smi, feats, meta, time.time() - t0))
+        for group in groups.values():
+            results += self._run_ligand_group(system, group, output_dir, smi_map,
+                                              write_outputs, t_start)
+        return results
+
+    def _run_ligand_group(self, system, group, output_dir, smi_map, write_outputs,
+                          t_start) -> List[Dict]:
+        """Screening over the generic group runner; a group with a ligand
+        whose guidance cannot be built docks one ligand at a time."""
+        smis = [smi for smi, _, _, _ in group]
+        res = self._run_group_batched(
+            [(f, m) for _, f, m, _ in group],
+            [os.path.join(output_dir, smi_map[smi]) for smi in smis],
+            remove_ligand=True, smis=smis, write_outputs=write_outputs, t_start=t_start)
+        if res is None:
+            return [self._screen_one(system, smi, output_dir, smi_map, write_outputs)
+                    for smi in smis]
+        for (smi, _, _, load_s), r in zip(group, res):
+            r["smiles"] = smi
+            r["timings"] = {"load_s": round(load_s, 3), **r["timings"]}
+        return res
+
+    @torch.no_grad()
+    def _run_group_batched(self, items, out_dirs, *, remove_ligand: bool, smis,
+                           write_outputs: bool, t_start: float,
+                           gt_ligs=None) -> Optional[List[Dict]]:
+        """Dock a group of same-shaped systems (items of (feats, meta)) in
+        one sampler pass per round: the systems stacked on a leading axis,
+        their ligand force fields and conformer banks padded to the
+        group's largest ligand, one RoundProtocol each. The trunk runs per
+        system whenever its MSA is resampled. The group stays in the round
+        loop until every protocol is done. Returns None when physics
+        correction is on and some item's guidance cannot be built."""
+        s = self.s
+        n = len(items)
+        metas = [m for _, m in items]
+        batch_msa = [m.pop("batch_msa_feat", None) for m in metas]
+        lig_idxs = [np.asarray(m["ligand_atom_idx"]) for m in metas]
+        guided = s.enable_physics_correction
+        t0 = time.time()
+        guidance, protocols = None, None
+        if guided:
+            l_max = max(max(len(ix) for ix in lig_idxs), 1)
+            built = [self._build_guidance(f, m, pad_atoms=l_max) for f, m in items]
+            if any(g is None for g, _ in built):
+                return None
+            guidance = stack_guidances([g for g, _ in built])
+            protocols = [
+                RoundProtocol(confs, max_samples=s.max_samples,
+                              num_samples_per_round=s.num_samples_per_round, eta_start=s.eta,
+                              gt_ligand=None if gt_ligs is None else gt_ligs[b])
+                for b, (_, confs) in enumerate(built)]
+        compacts = [compact_batch_np(f) for f, _ in items]
+        stacked = self._to_device({k: np.stack([np.asarray(c[k]) for c in compacts])
+                                   for k in compacts[0]})
+        gen = torch.Generator(device=self.device).manual_seed(s.seed)
+        t_feat = time.time() - t_start
+        timings = {"guidance_s": round(time.time() - t0, 3)}
+        rounds_run = 0
+        x = None
+        conds = None
+        for rnd in range(s.max_rounds if guided else 1):
+            rounds_run += 1
+            for b, bm in enumerate(batch_msa):
+                if bm is not None:
+                    # MSA clusters resampled per round: recompute the trunk
+                    c = compact_msa_np(bm[rnd % len(bm)])
+                    for k in ("msa_tok_c", "msa_del_c"):
+                        stacked[k][b] = torch.as_tensor(c[k], device=self.device)
+                    conds = None
+            if conds is None:
+                conds = stacked_conditioning(self.model, stacked)
+            banks = [p.bank(rnd) for p in protocols] if guided else [None]
+            g, use_bank = guidance, all(bank is not None for bank in banks)
+            if use_bank:
+                pos = np.zeros((n,) + guidance.conf_pos.shape[1:], np.float32)
+                mask = np.zeros(guidance.conf_mask.shape, np.float32)
+                for b, (pb, mb) in enumerate(banks):
+                    pos[b, :, : pb.shape[1]] = pb
+                    mask[b] = mb
+                g = dataclasses.replace(
+                    guidance, conf_pos=torch.as_tensor(pos, device=self.device),
+                    conf_dists=torch.as_tensor(pairwise(pos), device=self.device),
+                    conf_mask=torch.as_tensor(mask, device=self.device))
+            x_t = sample_diffusion_batched(
+                self.model, stacked, generator=gen, num_sample=s.num_samples_per_round,
+                steps=s.steps, gamma_0=s.gamma_0, gamma_min=s.gamma_min,
+                noise_scale_lambda=s.noise_scale_lambda, step_scale_eta=s.step_scale_eta,
+                karras_rho=s.rho, guidance=g,
+                mmff_gamma_0_factor=[p.factor for p in protocols] if guided else [s.eta] * n,
+                mmff_iters=s.mmff_iters, align_ref_pos=use_bank, conditioning=conds)
+            x = x_t.float().cpu().numpy()  # [n, S, A, 3]
+            if not guided:
+                break
+            ok = chirality_correct(gather_ligand(x_t, guidance), guidance.ff).cpu().numpy()
+            for b in range(n):
+                protocols[b].update(x[b], x[b][:, lig_idxs[b]], ok[b])
+            if all(p.done for p in protocols):
+                break
+        timings["rounds_s"] = round(time.time() - t_start - t_feat, 3)
+        out: List[Dict] = []
+        for b, (feats, meta) in enumerate(items):
+            poses = protocols[b].final_poses() if guided else x[b][: s.max_samples]
+            r = self._postprocess(feats, meta, poses, out_dirs[b], remove_ligand=remove_ligand,
+                                  smi=smis[b], rounds_run=rounds_run, t_feat=t_feat,
+                                  t_start=t_start, write_outputs=write_outputs)
+            r["vs_batch_size"] = n
+            r["timings"] = dict(timings)
+            out.append(r)
+        return out

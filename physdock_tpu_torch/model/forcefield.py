@@ -9,7 +9,10 @@
 
 Arrays are padded to static sizes; `mask` entries zero padded terms.  The
 relaxation's gradient is `torch.autograd.grad` of the energy (the JAX
-package takes `jax.grad`).
+package takes `jax.grad`).  `stack_ligand_ffs` stacks several ligands'
+fields on a leading system axis; the energy, relaxation and chirality
+check then take poses [Bsys, ..., L, 3], each system with its own field
+(what `jax.vmap` over the stacked field gives the JAX package).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ _VDW_RADII = {
 @dataclasses.dataclass(frozen=True)
 class LigandFF:
     """Static-shaped restraint-field parameters for one ligand (tensors on
-    the device the guidance runs on)."""
+    the device the guidance runs on), or for several stacked on a leading
+    system axis (`stack_ligand_ffs`)."""
 
     bond_idx: torch.Tensor  # [NB, 2] int64
     bond_r0: torch.Tensor  # [NB]
@@ -163,6 +167,20 @@ def build_ligand_ff(
     )
 
 
+def stack_ligand_ffs(ffs: Sequence[LigandFF]) -> LigandFF:
+    """Stack per-ligand force fields on a leading system axis, every term
+    padded to the largest capacity of the batch (zero masks on the
+    padding)."""
+
+    def pad_stack(field: str) -> torch.Tensor:
+        arrs = [getattr(f, field) for f in ffs]
+        n = max(a.shape[0] for a in arrs)
+        return torch.stack([torch.cat([a, a.new_zeros((n - a.shape[0],) + a.shape[1:])])
+                            for a in arrs])
+
+    return LigandFF(**{f.name: pad_stack(f.name) for f in dataclasses.fields(LigandFF)})
+
+
 K_BOND = 100.0
 K_ANG = 50.0
 K_TOR = 10.0
@@ -171,34 +189,53 @@ K_CHIRAL = 50.0
 CHIRAL_MARGIN = 0.5
 
 
+def _per_system(t, pos):
+    """A stacked field [Bsys, K] viewed as [Bsys, 1, ..., K] to broadcast
+    against per-pose values [Bsys, ..., K] of poses `pos` [Bsys, ..., L, 3];
+    an unstacked field as it is."""
+    if t.dim() == 1:
+        return t
+    return t.view(t.shape[:1] + (1,) * (pos.dim() - 3) + t.shape[1:])
+
+
+def _atoms(pos, idx):
+    """pos[..., idx, :]: [..., K, 3] for idx [K], or per system for a
+    stacked idx [Bsys, K] and pos [Bsys, ..., L, 3]."""
+    if idx.dim() == 1:
+        return pos[..., idx, :]
+    idx = _per_system(idx, pos)[..., None]
+    return torch.gather(pos, -2, idx.expand(*pos.shape[:-2], idx.shape[-2], 3))
+
+
 def _chiral_volumes(pos, idx):
-    a = pos[..., idx[:, 0], :]
-    b = pos[..., idx[:, 1], :]
-    c = pos[..., idx[:, 2], :]
-    d = pos[..., idx[:, 3], :]
+    a, b, c, d = (_atoms(pos, idx[..., j]) for j in range(4))
     return torch.sum(torch.linalg.cross(b - a, c - a, dim=-1) * (d - a), dim=-1)
 
 
 def ff_energy(pos: torch.Tensor, ff: LigandFF) -> torch.Tensor:
-    """Restraint energy per pose. pos: [..., L, 3] -> [...]."""
+    """Restraint energy per pose. pos: [..., L, 3] -> [...], or with a
+    stacked field [Bsys, ..., L, 3] -> [Bsys, ...]."""
 
     def pair_term(idx, r0, mask, k, one_sided=False):
-        d = torch.linalg.norm(pos[..., idx[:, 0], :] - pos[..., idx[:, 1], :] + 1e-9, dim=-1)
+        d = torch.linalg.norm(_atoms(pos, idx[..., 0]) - _atoms(pos, idx[..., 1]) + 1e-9, dim=-1)
+        r0 = _per_system(r0, pos)
         diff = torch.relu(r0 - d) if one_sided else d - r0
-        return k * torch.sum(mask * diff * diff, dim=-1)
+        return k * torch.sum(_per_system(mask, pos) * diff * diff, dim=-1)
 
     e = pair_term(ff.bond_idx, ff.bond_r0, ff.bond_mask, K_BOND)
     e = e + pair_term(ff.ang_idx, ff.ang_r0, ff.ang_mask, K_ANG)
     e = e + pair_term(ff.tor_idx, ff.tor_r0, ff.tor_mask, K_TOR)
     e = e + pair_term(ff.nb_idx, ff.nb_r, ff.nb_mask, K_NB, one_sided=True)
-    viol = torch.relu(CHIRAL_MARGIN - ff.chiral_sign * _chiral_volumes(pos, ff.chiral_idx))
-    return e + K_CHIRAL * torch.sum(ff.chiral_mask * viol * viol, dim=-1)
+    vol = _chiral_volumes(pos, ff.chiral_idx)
+    viol = torch.relu(CHIRAL_MARGIN - _per_system(ff.chiral_sign, pos) * vol)
+    return e + K_CHIRAL * torch.sum(_per_system(ff.chiral_mask, pos) * viol * viol, dim=-1)
 
 
 def relax_positions(pos: torch.Tensor, ff: LigandFF, iters: int = 5,
                     step_size: float = 2e-3, max_step: float = 0.2) -> torch.Tensor:
     """Fixed-iteration gradient minimization of the restraint field, steps
-    norm-clipped per atom. pos: [..., L, 3]; poses relax independently."""
+    norm-clipped per atom. pos: [..., L, 3] ([Bsys, ..., L, 3] with a
+    stacked field); poses relax independently."""
     p = pos.detach().float()
     with torch.enable_grad():
         for _ in range(iters):
@@ -213,7 +250,8 @@ def relax_positions(pos: torch.Tensor, ff: LigandFF, iters: int = 5,
 
 def chirality_correct(pos: torch.Tensor, ff: LigandFF) -> torch.Tensor:
     """True where every chiral centre's signed volume matches the
-    reference sign. pos: [..., L, 3] -> [...] bool."""
+    reference sign. pos: [..., L, 3] -> [...] bool (with a stacked field
+    [Bsys, ..., L, 3] -> [Bsys, ...])."""
     vol = _chiral_volumes(pos, ff.chiral_idx)
-    ok = (vol * ff.chiral_sign > 0) | (ff.chiral_mask == 0)
+    ok = (vol * _per_system(ff.chiral_sign, pos) > 0) | (_per_system(ff.chiral_mask, pos) == 0)
     return torch.all(ok, dim=-1)

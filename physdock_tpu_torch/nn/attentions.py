@@ -191,7 +191,9 @@ class TriangleAttention(nn.Module):
 
 class DiTAttention(nn.Module):
     """AdaLN-Zero-modulated attention with pair bias and q/k RMSNorm.
-    bs: [B, S, c_s] (B = diffusion samples); t: [B, 256].
+    bs: [B, S, c_s] (B = diffusion samples); t: [B, 256]; bias [H, S, S].
+    With a system axis: bs [N, Bsys, S, c_s], t [N, Bsys, 256], bias
+    [Bsys, H, S, S], each system's bias shared by its N samples.
 
     The pair bias depends only on the conditioning, so `compute_bias` runs
     once per round and every diffusion step reuses it."""
@@ -213,10 +215,11 @@ class DiTAttention(nn.Module):
         self.linear_o = Linear(c_s, c_s, **kw)
 
     def compute_bias(self, z, z_mask):
-        """[H, S, S] pair bias incl. the additive mask, stored in the
+        """[..., H, S, S] pair bias incl. the additive mask, stored in the
         compute dtype (bf16 halves the per-step read of the cached bias)."""
         bias = torch.movedim(self.linear_z(self.norm_z(z)), -1, -3)
-        return (bias.float() + gen_attn_mask(z_mask.float(), -self.inf)[None]).to(self.dtype).contiguous()
+        mask = gen_attn_mask(z_mask.float(), -self.inf)[..., None, :, :]
+        return (bias.float() + mask).to(self.dtype).contiguous()
 
     def forward(self, bs, t, bias):
         h = self.h

@@ -182,14 +182,14 @@ class OuterProductMean(nn.Module):
 def sinusoidal_timestep_embedding(timesteps, embedding_dim: int = 256,
                                   max_period: float = 10000.0):
     """Diffusers-lineage sinusoidal embedding with flip_sin_to_cos=True and
-    shift 0."""
+    shift 0. timesteps: [...] -> [..., embedding_dim]."""
     half = embedding_dim // 2
     exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
                                                     device=timesteps.device)
     exponent = exponent / half
-    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    emb = timesteps.float()[..., None] * torch.exp(exponent)
     emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
-    return torch.cat([emb[:, half:], emb[:, :half]], dim=-1)
+    return torch.cat([emb[..., half:], emb[..., :half]], dim=-1)
 
 
 class TimestepEmbeddings(nn.Module):

@@ -34,6 +34,7 @@ from physdock_tpu_torch.nn.primitives import (
     TimestepEmbeddings,
     Transition,
 )
+from physdock_tpu_torch.utils.geometry import take_rows
 
 
 def _res(x, delta):
@@ -234,7 +235,8 @@ class DiT(_Stack):
         self.dtype = dtype
 
     def compute_bias(self, z, z_mask):
-        """Per-block pair biases [no_blocks, H, S, S] (cached once per round)."""
+        """Per-block pair biases [no_blocks, H, S, S] (cached once per
+        round); [no_blocks, Bsys, H, S, S] for z [Bsys, S, S, c_z]."""
         return torch.stack([run_block(blk.attention.compute_bias, z, z_mask)
                             for blk in self.blocks])
 
@@ -250,10 +252,11 @@ class DiT(_Stack):
 
 def segment_mean_pool(x, token_id_to_chunk_sizes, eps: float = 1e-3):
     """Mean-pool atom features into tokens via the cumsum-diff trick.
-    x: [..., A, C]; sizes: [T] int (0 for padded tokens -> zeros)."""
+    x: [..., A, C]; sizes: [T] int (0 for padded tokens -> zeros), or
+    [Bsys, T] for x [..., Bsys, A, C], one system's sizes each."""
     x_cumsum = torch.cumsum(x.float(), dim=-2)
     inds = torch.cumsum(token_id_to_chunk_sizes, dim=-1) - 1
-    value = torch.index_select(x_cumsum, -2, inds.clamp_min(0))
+    value = take_rows(x_cumsum, inds.clamp_min(0))
     x_tok = torch.cat([value[..., :1, :], torch.diff(value, dim=-2)], dim=-2)
     sizes = token_id_to_chunk_sizes.to(x.dtype)
     return x_tok / (sizes[..., None] + eps)
@@ -263,7 +266,15 @@ class AF3DiT(nn.Module):
     """EDM-preconditioned atom -> token -> atom DiT denoiser.
 
     `compute_bias_cache` precomputes the per-block attention biases from
-    (ap, z) once per round; every diffusion step reuses them."""
+    (ap, z) once per round; every diffusion step reuses them.
+
+    With a system axis (several ligand-systems of one shape, as
+    `jax.vmap` gives the JAX denoiser), every input leads with it: x_hat
+    [Bsys, N, A, 3], t_hat [Bsys, N], a [Bsys, A, c_a], the biases [...,
+    Bsys, H, S, S], the index maps [Bsys, ...].  The DiT runs on samples
+    laid out sample-major ([N, Bsys, ...]), so sample n of system b is
+    row n * Bsys + b and the attention kernels serve each system's bias
+    to its own samples without a copy (lead Bsys * H)."""
 
     def __init__(self, c_a, c_ap, c_s, c_z, no_blocks_atom, no_blocks_dit,
                  sigma_data=16.0, inf=1e9, eps=1e-8, dtype=torch.float32,
@@ -294,8 +305,11 @@ class AF3DiT(nn.Module):
                 token_id_to_chunk_sizes, atom_id_to_token_id, bias_cache=None):
         if bias_cache is None:
             bias_cache = self.compute_bias_cache(ap, z, ap_mask, z_mask)
+        systems = atom_id_to_token_id.dim() == 2
+        if systems:
+            x_hat, t_hat = x_hat.transpose(0, 1), t_hat.transpose(0, 1)
         sd = self.sigma_data
-        c_in = 1.0 / torch.sqrt(t_hat[:, None, None] ** 2 + sd**2)
+        c_in = 1.0 / torch.sqrt(t_hat[..., None, None] ** 2 + sd**2)
         c_noise = torch.log(t_hat / sd) / 4.0
         ba = self.linear_x((x_hat * c_in).to(self.dtype)) + a[None].to(self.dtype)
         t = self.time_embedder(t_hat * c_noise)
@@ -304,10 +318,11 @@ class AF3DiT(nn.Module):
         pooled = segment_mean_pool(F.silu(self.linear_downscale(ba)), token_id_to_chunk_sizes)
         bs = pooled + s[None].to(pooled.dtype)
         bs = self.token_dit(bs, t, bias_cache["token"])
-        ba = ba + torch.index_select(self.linear_upscale(bs), -2, atom_id_to_token_id).float()
+        ba = ba + take_rows(self.linear_upscale(bs), atom_id_to_token_id).float()
         ba = self.atom_dit_decoder(ba, t, bias_cache["atom_dec"])
 
         r = self.linear_r(self.norm_r(ba)).float()
-        c_skip = (sd**2 / (sd**2 + t_hat**2))[:, None, None]
-        c_out = (sd * t_hat / torch.sqrt(sd**2 + t_hat**2))[:, None, None]
-        return c_skip * x_hat + c_out * r
+        c_skip = (sd**2 / (sd**2 + t_hat**2))[..., None, None]
+        c_out = (sd * t_hat / torch.sqrt(sd**2 + t_hat**2))[..., None, None]
+        x = c_skip * x_hat + c_out * r
+        return x.transpose(0, 1) if systems else x

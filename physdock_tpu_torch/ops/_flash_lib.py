@@ -66,12 +66,15 @@ LAUNCHES = {
 }
 # launches per design of the training pair, to show which one a run took
 ROUTES = {"fwd_lse_tc": 0, "fwd_lse_simt": 0, "bwd_tc": 0, "bwd_simt": 0}
+# per wrapper: biases it expanded to one block per (batch, head) before a
+# launch, a copy of B*H*S_q*S_k elements (`flash_attention._bias_lead`)
+BIAS_EXPANSIONS = dict.fromkeys(LAUNCHES, 0)
 # per source: nvcc seconds and the -Xptxas -v report
 BUILD_LOG = {name: {"seconds": None, "ptxas": ""} for name in SOURCES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, BIAS_EXPANSIONS):
         for name in counts:
             counts[name] = 0
 
@@ -426,6 +429,28 @@ def sdpa_plain(q, k, v, bias=None):
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("...qk,...kd->...qd", probs.to(q.dtype), v)
+
+
+def shared_bias(bias, batch: int, h: int, s_q: int, s_k: int):
+    """A bias shared over the batch axis of q [B, H, S_q, D]: [H, S_q,
+    S_k], one for every row, or [G, H, S_q, S_k], one per system, with the
+    rows laid out sample-major (row b takes block b % G). Returns the
+    [G*H, S_q, S_k] contiguous form and the kernel's lead G*H, under which
+    the kernel's row-block index (b*H + h) % lead is (b % G)*H + h."""
+    g = bias.shape[0] if bias.dim() == 4 else 1
+    if bias.dim() not in (3, 4) or tuple(bias.shape[-3:]) != (h, s_q, s_k) or batch % g:
+        raise ValueError(f"bias {tuple(bias.shape)} is neither {(h, s_q, s_k)} nor "
+                         f"[G, {h}, {s_q}, {s_k}] with G dividing the batch {batch}")
+    return bias.reshape(g * h, s_q, s_k).contiguous(), g * h
+
+
+def shared_plain(q, k, v, bias):
+    """The plain version under a `shared_bias` bias: q/k/v [B, H, S, D]
+    seen as [B/G, G, H, S, D] against a [G, H, S_q, S_k] bias."""
+    if bias.dim() == 3:
+        return sdpa_plain(q, k, v, bias)
+    g = bias.shape[0]
+    return sdpa_plain(*(x.unflatten(0, (-1, g)) for x in (q, k, v)), bias).flatten(0, 1)
 
 
 def split_plain(q, k, v, bias, key_chunk: int):

@@ -12,10 +12,14 @@ point of every attention module (port of `physdock_tpu/ops/attention.py`).
 `dot_product_attention` routes each call by the classes of the JAX
 dispatcher (`_flash_pick`): a [H, S, S] bias shared over a batch of 4-D
 q goes to the folded kernels when H*D = 128 (v3 for S_k >= 1024), else
-to the grouped one; everything else to `flash_sdpa`.  On CUDA every call
-goes to a kernel; the TPU's tiling gates do not apply, since the kernel
-masks ragged tiles itself.  A wrapper given CPU tensors runs its plain
-version.
+to the grouped one; everything else to `flash_sdpa`.  A system axis
+(q [N, Bsys, H, S, D] with one [Bsys, H, S, S] bias per system, as the
+batched sampler's DiT gives it) takes the class of one system's shapes,
+where `jax.vmap` leaves the JAX dispatcher: the wrapper then runs the N *
+Bsys rows, sample-major, over the per-system bias with lead Bsys * H.
+On CUDA every call goes to a kernel; the TPU's tiling gates do not
+apply, since the kernel masks ragged tiles itself.  A wrapper given CPU
+tensors runs its plain version.
 
 Under autograd (grad mode on and an input that requires grad), a CUDA
 call goes through one of two `torch.autograd.Function`s, the
@@ -55,31 +59,37 @@ __all__ = ["dot_product_attention", "sdpa_reference", "pick_kernel"]
 
 
 def pick_kernel(q, k, bias) -> str:
-    """Name of the wrapper that serves this call site."""
+    """Name of the wrapper that serves this call site: q [N, H, S, D] with
+    a bias [H, S_q, S_k] shared by the N > 1 rows, or q [N, Bsys, H, S, D]
+    with a bias [Bsys, H, S_q, S_k], are the shared-bias classes."""
     if (
         bias is not None
-        and bias.dim() == 3
-        and q.dim() == 4
+        and bias.dim() in (3, 4)
+        and q.dim() == bias.dim() + 1
         and q.shape[0] > 1
-        and tuple(bias.shape) == (q.shape[1], q.shape[2], k.shape[2])
+        and tuple(bias.shape) == tuple(q.shape[1:-1]) + (k.shape[-2],)
     ):
-        if q.shape[1] * q.shape[3] == 128:
-            return "flash_sdpa_folded_v3" if k.shape[2] >= 1024 else "flash_sdpa_folded"
+        if q.shape[-3] * q.shape[-1] == 128:
+            return "flash_sdpa_folded_v3" if k.shape[-2] >= 1024 else "flash_sdpa_folded"
         return "flash_sdpa_grouped"
     return "flash_sdpa"
 
 
 def _run_kernel(q, k, v, bias):
     name = pick_kernel(q, k, bias)
+    if name == "flash_sdpa":
+        return flash_sdpa(q, k, v, bias)
+    # the shared-bias classes: samples (and systems) as one sample-major batch
+    lead = q.shape[:-3]
+    q, k, v = (x.flatten(0, -4) for x in (q, k, v))
     if name == "flash_sdpa_folded_v3":
         h = q.shape[1]
-        o = flash_sdpa_folded_v3(fold(q), fold(k), fold(v), bias, h)
-        return split_view(o, h)
-    if name == "flash_sdpa_folded":
-        return flash_sdpa_folded_from_split(q, k, v, bias)
-    if name == "flash_sdpa_grouped":
-        return flash_sdpa_grouped(q, k, v, bias)
-    return flash_sdpa(q, k, v, bias)
+        o = split_view(flash_sdpa_folded_v3(fold(q), fold(k), fold(v), bias, h), h)
+    elif name == "flash_sdpa_folded":
+        o = flash_sdpa_folded_from_split(q, k, v, bias)
+    else:
+        o = flash_sdpa_grouped(q, k, v, bias)
+    return o.unflatten(0, lead)
 
 
 class _FoldedDiff(torch.autograd.Function):

@@ -30,6 +30,7 @@ def _bias_lead(bias, batch, h, s_q, s_k):
         lead = math.prod(lead_dims)
         return bias.reshape(lead, s_q, s_k).contiguous(), lead
     lead = math.prod(full)
+    _flash_lib.BIAS_EXPANSIONS[NAME] += 1
     return bias.expand(*full, s_q, s_k).reshape(lead, s_q, s_k).contiguous(), lead
 
 

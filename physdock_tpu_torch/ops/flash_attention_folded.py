@@ -12,7 +12,6 @@ is made.
 from __future__ import annotations
 
 from physdock_tpu_torch.ops import _flash_lib
-from physdock_tpu_torch.ops._flash_lib import sdpa_plain
 
 NAME = "flash_sdpa_folded"
 
@@ -29,29 +28,29 @@ def fold(x):
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
-def _check_folded(q, k, v, bias, n_heads):
+def _check_folded(q, k, v, n_heads):
     if q.dim() != 3 or q.shape[-1] % n_heads:
         raise ValueError(f"q must be [B, S, H*D] with H={n_heads}, got {tuple(q.shape)}")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    want = (n_heads, q.shape[1], k.shape[1])
-    if tuple(bias.shape) != want:
-        raise ValueError(f"bias {tuple(bias.shape)} != {want}")
 
 
 def _run(name, q, k, v, bias):
-    """[B, H, S, D] views in, [B, H, S_q, D] out."""
+    """[B, H, S, D] views in, [B, H, S_q, D] out; bias as
+    `_flash_lib.shared_bias` takes it."""
+    bias3, lead = _flash_lib.shared_bias(bias, q.shape[0], q.shape[1], q.shape[2], k.shape[2])
     if not q.is_cuda:
-        return sdpa_plain(q, k, v, bias)
-    o = _flash_lib.launch(q, k, v, bias.contiguous(), q.shape[1])
+        return _flash_lib.shared_plain(q, k, v, bias)
+    o = _flash_lib.launch(q, k, v, bias3, lead)
     _flash_lib.LAUNCHES[name] += 1
     return o
 
 
 def flash_sdpa_folded(q, k, v, bias, n_heads: int):
-    """q, k, v: [B, S, H*D] folded; bias: [H, S_q, S_k] shared across B.
-    Returns [B, S_q, H*D] in q.dtype."""
-    _check_folded(q, k, v, bias, n_heads)
+    """q, k, v: [B, S, H*D] folded; bias: [H, S_q, S_k] shared across B,
+    or [G, H, S_q, S_k] with row b served by block b % G. Returns [B, S_q,
+    H*D] in q.dtype."""
+    _check_folded(q, k, v, n_heads)
     o = _run(NAME, split_view(q, n_heads), split_view(k, n_heads),
              split_view(v, n_heads), bias)
     return fold(o)
@@ -59,7 +58,4 @@ def flash_sdpa_folded(q, k, v, bias, n_heads: int):
 
 def flash_sdpa_folded_from_split(q, k, v, bias):
     """Per-head [B, H, S, D] inputs; same kernel, same result layout."""
-    h = q.shape[1]
-    if tuple(bias.shape) != (h, q.shape[2], k.shape[2]):
-        raise ValueError(f"bias {tuple(bias.shape)} != {(h, q.shape[2], k.shape[2])}")
     return _run(NAME, q, k, v, bias)

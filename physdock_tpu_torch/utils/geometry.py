@@ -19,6 +19,19 @@ def masked_mean(mask, value, dim, eps: float = 1e-9):
     return torch.sum(mask * value, dim=dim) / (eps + torch.sum(mask, dim=dim))
 
 
+def take_rows(x, idx, dim: int = -2):
+    """x's entries at `idx` along `dim` (-1 or -2). idx [T] is taken
+    for every leading index of x; idx [..., T] gives each entry of its
+    own leading axes, which match x's last batch axes (a system axis),
+    its own rows."""
+    if idx.dim() == 1:
+        return torch.index_select(x, dim, idx)
+    if dim == -1:
+        return torch.gather(x, -1, idx.expand(*x.shape[:-1], idx.shape[-1]))
+    idx = idx[..., None]
+    return torch.gather(x, -2, idx.expand(*x.shape[:-2], idx.shape[-2], x.shape[-1]))
+
+
 def one_hot_nearest(x, v_bins):
     """One-hot of the nearest bin (AF3 Algorithm 4)."""
     diffs = x[..., None] - v_bins.reshape((1,) * x.dim() + (-1,))
@@ -57,7 +70,8 @@ def uniform_random_rotation(shape: Tuple[int, ...], generator: Optional[torch.Ge
 
 def centre_random_augmentation(x, x_exists, generator: Optional[torch.Generator] = None, s: float = 1.0):
     """Centre on the masked mean, rotate each leading batch element at
-    random and add N(0, s) translation. x: [..., A, 3]; x_exists: [A]."""
+    random and add N(0, s) translation. x: [..., A, 3]; x_exists: [A],
+    or [Bsys, 1, A] for poses [Bsys, N, A, 3] of several systems."""
     rot = uniform_random_rotation(tuple(x.shape[:-2]), generator, x.device)
     t = s * torch.randn(tuple(x.shape[:-2]) + (3,), generator=generator, device=x.device, dtype=x.dtype)
     return apply_centre_augmentation(x, x_exists, rot, t)
@@ -67,7 +81,7 @@ def apply_centre_augmentation(x, x_exists, rot, t):
     """Deterministic body of `centre_random_augmentation` with explicit
     rotation/translation (the lockstep-parity injection point)."""
     w = x_exists.to(x.dtype)
-    mean = torch.sum(x * w[..., :, None], dim=-2, keepdim=True) / torch.sum(w)
+    mean = torch.sum(x * w[..., :, None], dim=-2, keepdim=True) / w.sum(-1)[..., None, None]
     x_aug = torch.einsum("...ij,...kj->...ki", rot.to(x.dtype), x - mean)
     return x_aug + t[..., None, :].to(x.dtype)
 

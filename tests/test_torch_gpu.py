@@ -7,7 +7,8 @@ where JAX is not installed:
 Each wrapper launches the CUDA kernel on ragged shapes (neither axis a
 multiple of the 64-row tile), with fully masked rows and the -1e9 / -2e9
 tiers, and is held against its plain version on the same card tensors:
-fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2.  The training pair
+fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2, a bias per system
+over sample-major rows included.  The training pair
 (`flash_fwd_lse`, `flash_bwd`) is held the same way at D = 32, 64 and 128,
 relative to max|plain| (fp32 1e-4, bf16 2e-2), and its tensor-core design
 (D = 32) on ragged lengths, both bias dtypes, batch groups, fully masked
@@ -251,6 +252,33 @@ def test_tc_ragged_lengths(s_q, s_k, dtype):
 def test_tc_bias_lead_and_strides(folded, lead, dtype):
     _need_cuda()
     _check_tc(*_tc_case(13, 3, 4, 130, 190, 32, dtype, lead=lead, folded=folded))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("folded", [False, True], ids=["split", "folded"])
+def test_tc_bias_per_system_sample_major(folded, dtype):
+    """A bias per system shared by that system's samples (batched
+    screening): rows sample-major (row b = n * g + system) over a [g, H, S,
+    S] bias, lead g * H strictly between H and B * H; through the wrapper
+    of each layout, against each system's rows with its own bias."""
+    _need_cuda()
+    n, g, h, s_q, s_k = 4, 3, 4, 130, 190
+    q, k, v, bias, _, _ = _tc_case(15, n * g, h, s_q, s_k, 32, dtype, lead="bh", folded=folded)
+    bias = bias[: g * h].reshape(g, h, s_q, s_k)
+    ref = torch.empty_like(q)
+    for i in range(g):
+        ref[i::g] = _flash_lib.sdpa_plain(q[i::g], k[i::g], v[i::g], bias[i])
+    _flash_lib.reset_launches()
+    if folded:
+        out = split_view(flash_sdpa_folded_v3(fold(q), fold(k), fold(v), bias, h), h)
+    else:
+        out = flash_sdpa_grouped(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert sum(_flash_lib.LAUNCHES.values()) == 1 and not any(_flash_lib.BIAS_EXPANSIONS.values())
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= TOL[dtype], err
 
 
 @pytest.mark.gpu
