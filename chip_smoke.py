@@ -43,12 +43,23 @@ exits non-zero (no phase is caught):
                  same-call time of the SIMT pair at the same inputs
                  (`before_ms`); kernel and SIMT times are CUDA-graph
                  replays, plain and SDPA times eager
+  4b. conf kernels -- rows 3 and 4 at the confidence head's sites in the
+                 confidence dock (triangle B 128, H 4, S 128; single
+                 attention H 16, S 128; atoms H 4, S 832), fp32 and bf16,
+                 against their plain versions at phase 3's limits, with
+                 kernel, SIMT, plain and SDPA times
   5. model    -- the toy model's conditioning, DiT bias cache and denoise
                  at the main dock's shapes (256 tokens, 2048 atoms, 2
                  samples), on the card through the kernels and on the CPU
                  through their plain versions; every output within rel
                  1e-3 of max|cpu| (fp32, TF32 off), and every forward
-                 wrapper, the atom DiT's v3 included, launched
+                 wrapper, the atom DiT's v3 included, launched; then the
+                 confidence head with the committed confidence weights
+                 (_confidence/ema_params_conf.npz) on one pose at crop
+                 256/2048 with padding (224 tokens and 1792 atoms real),
+                 each device from its own trunk: p_pae, p_pde and p_plddt
+                 within rel 1e-3 of max|cpu|, rows 3 and 4 launched in the
+                 head
   6. grad     -- one training step's loss and gradient of the toy model
                  (committed weights) on 5SAK_ZRY_A_1 featurized in training
                  mode at crop 128/1024 with 4 augmentation samples, the
@@ -57,11 +68,26 @@ exits non-zero (no phase is caught):
                  loss within rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||
                  over all parameters; rows 5, 6, 2 and 4 launched, rows 1
                  and 3 not (the dispatch under grad), and rows 5-6 on the
-                 tensor-core pair, the SIMT pair never
+                 tensor-core pair, the SIMT pair never; then the same for
+                 one mini-rollout step of the model with the confidence
+                 weights on the corrupt-pose route (alpha_pae 1), the
+                 corruption's draws from the same CPU generator: the same
+                 limits, and every confidence-head parameter with a
+                 non-zero gradient on the card
   7. accuracy -- guided redocking of the 4 demo systems with the committed
                  toy weights (_overfit/ema_params.npz) at crop 128/1024,
                  40 steps, 2 rounds, 20 poses per round, fp32; every
                  top-ranked ligand RMSD must be < 2 A
+ 7b. confidence -- the same dock of the 4 systems with the committed
+                 confidence weights and --enable_confidence
+                 --confidence_ranking: every pose's metrics finite
+                 (mean_plddt in [0, 100], ptm and iptm in [0, 1]),
+                 confidence.json written, ranking_confidence
+                 non-increasing along the rank order, the rank order
+                 the argsort of the float32 scores, and the
+                 confidence-ranked top-1 ligand RMSD < 2 A on 4/4; the
+                 head's seconds per pose (timed around the pipeline's
+                 `_confidence_scores`) and its launches per row
   8. main     -- one demo system at crop 256/2048 (20 poses per round):
                  launch counters reset before and read after; every
                  forward wrapper must have launched, and the top-ranked
@@ -77,7 +103,12 @@ exits non-zero (no phase is caught):
                  once; rows 5-6 on the tensor-core pair, the SIMT pair
                  never; seconds per step (the wait for the batch and its
                  copy included, and also shown alone), peak memory,
-                 launches per step
+                 launches per step; then a second run with
+                 --use_mini_rollout --mini_rollout_steps 12 --alpha_pae 1
+                 (the medium preset with its head): the pLDDT, PAE and PDE
+                 losses logged and finite, the head's parameters and EMA
+                 moved, and the EMA, head included, loads into a fresh
+                 model with the head with every key used once
  10. lockstep -- two ligand-systems of one shape (demo receptor 6kzd, two
                  demo SMILES, crop 256/2048, 20 poses each, guided, with a
                  different adaptive factor each) for 4 steps through the
@@ -94,11 +125,17 @@ exits non-zero (no phase is caught):
                  poses per ligand, finite coordinates in the written PDB
                  and SDF files, no bias expanded in the batched screen, and
                  row 1 launched as often per group-round as per
-                 single-ligand round; ligands/s and poses/s of both
+                 single-ligand round; ligands/s and poses/s of both; then
+                 a sequential screen of the first 2 SMILES with the
+                 confidence weights and both confidence flags, each result
+                 with one confidence entry per pose
  12. summary  -- the per-kernel JSON line (six rows; launches from the
                  main dock for rows 1-4 and from the train run for rows
-                 5-6, and for rows 1-4 those of both screens), the card
-                 line, and last the {"ok": true, ...} line
+                 5-6, and for rows 1-4 those of both screens; per row also
+                 its launches in the confidence dock, in its head alone
+                 and per mini-rollout train step, and rows 3-4 their times
+                 at the head's sites), the whole run's wall,
+                 the card line, and last the {"ok": true, ...} line
 
 It imports nothing of JAX, starts no process other than nvcc and
 nvidia-smi (the train run's prefetch is a thread, stopped when it ends),
@@ -126,11 +163,15 @@ TC_PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
 EXP_PER_S = 3.9e12  # special-function unit, 16 per SM per clock
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PARAMS = os.path.join(REPO, "_overfit", "ema_params.npz")
+CONF_PARAMS = os.path.join(REPO, "_confidence", "ema_params_conf.npz")
 MODEL_REL = 1e-3
 # 5SAK_ZRY_A_1 at crop 256/2048 with the toy weights, which were trained at
 # crop 128/1024 only: the JAX CLI on the CPU gives a top-ranked 4.34-4.38 A
 # and the port on the CPU 4.34-4.37 A. A wrong kernel lands poses far off.
 MAIN_RMSD_REF, MAIN_RMSD_TOL = 4.36, 0.5
+# this script's wall before the confidence phases were added (NVIDIA H100
+# 80GB HBM3, 700 W)
+EARLIER_WALL_S = 241
 
 
 def log(msg: str) -> None:
@@ -417,6 +458,26 @@ TRAIN_FWD_SITES = [
 ]
 
 
+# the confidence head's call sites in the confidence dock (crop 128/1024:
+# 128 tokens, 832 atoms after padding), one pose at a time; at crop
+# 256/2048 they are the shapes of the trunk's sites above
+CONF_SITES = [
+    ("flash_sdpa_folded", "head_triangle", dict(layout="folded", B=128, H=4, S=128, D=32)),
+    ("flash_sdpa", "head_single", dict(layout="heads_single", B=1, H=16, S=128, D=32)),
+    ("flash_sdpa", "head_atom", dict(layout="heads_single", B=1, H=4, S=832, D=32)),
+]
+
+
+def phase_conf_kernels(torch):
+    rows = {}
+    for name, site, spec in CONF_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"  {name} at the confidence head's site {site}:")
+            r = run_kernel_case(torch, name, spec, dtype, seed=spec["B"] + spec["H"] + spec["S"] + 1)
+            rows[(name, site, r["dtype"])] = r
+    return rows
+
+
 def _rel(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
 
@@ -595,6 +656,71 @@ def phase_model(torch):
     missing = [k for k, _, _ in kernel_cases() if launches[k] <= 0]
     if missing:
         fail(f"model phase never launched: {missing}")
+    phase_head(torch)
+
+
+def conf_model(torch, cfg):
+    """PhysDock with its confidence head and the committed confidence weights
+    (every key of the file used once)."""
+    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.model.weights import load_jax_params
+
+    model = PhysDock(cfg.model, with_confidence=True)
+    counts = load_jax_params(model, CONF_PARAMS)
+    if counts["unused_head_keys"]:
+        fail(f"confidence weights: {counts}")
+    return model
+
+
+def head_outputs(torch, batch, x_pred, device):
+    """The confidence head's (p_pae, p_pde, p_plddt) of one pose on `device`
+    from that device's own trunk, in fp32 on the CPU, and the launches of
+    the head alone."""
+    import numpy as np
+
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.ops import _flash_lib
+
+    model = conf_model(torch, PhysDockConfig.named("toy")).to(device).eval()
+    b = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    with torch.no_grad():
+        _, _, s, z = model.conditioning(b)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _flash_lib.reset_launches()
+        out = model.confidence(b, s, z, torch.from_numpy(x_pred).to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return [t.float().cpu() for t in out], dict(_flash_lib.LAUNCHES)
+
+
+def phase_head(torch):
+    import numpy as np
+
+    from physdock_tpu_torch.data.synthetic import make_synthetic_batch
+
+    t0 = time.time()
+    batch = make_synthetic_batch(n_tokens=224, n_atoms=1792, n_msa=8, n_ligand_tokens=32, seed=9,
+                                 pad_tokens=32, pad_atoms=256)
+    rng = np.random.default_rng(13)
+    x_pred = (np.asarray(batch["x_gt"], np.float32)[None]
+              + rng.normal(size=(1, 2048, 3)) * 2.0).astype(np.float32)
+    card, launches = head_outputs(torch, batch, x_pred, "cuda")
+    plain, _ = head_outputs(torch, batch, x_pred, "cpu")
+    errs = {}
+    for name, o, r in zip(("p_pae", "p_pde", "p_plddt"), card, plain):
+        if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+            fail(f"confidence head {name}: shape {tuple(o.shape)} vs {tuple(r.shape)}, or not finite")
+        errs[name] = float((o - r).abs().max() / r.abs().max())
+    log(f"[model] confidence head, 256 tokens (224 real) and 2048 atoms (1792 real), one pose: "
+        f"rel max abs err card vs CPU plain {json.dumps(errs)} ({time.time() - t0:.2f} s)")
+    log(f"[model] confidence head launches: {json.dumps(launches)}")
+    bad = {k: v for k, v in errs.items() if not (v <= MODEL_REL)}
+    if bad:
+        fail(f"confidence head on the card differs from the CPU by more than rel {MODEL_REL}: {bad}")
+    missing = [k for k in ("flash_sdpa_folded", "flash_sdpa") if launches[k] <= 0]
+    if missing:
+        fail(f"confidence head never launched {missing}")
 
 
 # -------------------------------------------------------------------- grad
@@ -637,6 +763,49 @@ def train_loss_and_grads(torch, feats, device, n_aug=4, seed=0):
     return float(loss.detach()), {k: float(v.detach()) for k, v in logs.items()}, grads
 
 
+def mini_rollout_loss_and_grads(torch, feats, device, n_aug=4, seed=0):
+    """Loss, loss terms and every parameter's gradient of one mini-rollout
+    train step's system (corrupt-pose route, alpha_pae 1) of the model with
+    the committed confidence weights on `device`; the draws come from one
+    CPU generator."""
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.infer.pipeline import arrays_to_device
+    from physdock_tpu_torch.model.physdock import prepare_batch
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import make_train_step
+
+    cfg = PhysDockConfig.named("toy", inference_mode=False, num_augmentation_sample=n_aug)
+    model = conf_model(torch, cfg).to(device)
+    step = make_train_step(model, make_optimizer(), dataclasses.replace(cfg.loss, alpha_pae=1.0),
+                           sigma_data=cfg.model.sigma_data, use_mini_rollout=True,
+                           corrupt_rollout_pose=True)
+    batch = prepare_batch(arrays_to_device(feats, device))
+    loss, logs = step.loss_fn(batch, step.draw_system(batch, torch.Generator().manual_seed(seed)))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    grads = {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+             for (n, p), g in zip(named, grads)}
+    return float(loss.detach()), {k: float(v.detach()) for k, v in logs.items()}, grads
+
+
+def compare_grads(tag, card, cpu):
+    """Fails unless the card's loss is within rel GRAD_REL_LOSS of the CPU's
+    and ||g_card - g_cpu|| <= GRAD_REL ||g_cpu|| over all parameters."""
+    diff = math.sqrt(sum(float(((card[2][n] - g) ** 2).sum()) for n, g in cpu[2].items()))
+    norm = math.sqrt(sum(float((g ** 2).sum()) for g in cpu[2].values()))
+    worst = max((float((card[2][n] - g).norm() / g.norm()), n)
+                for n, g in cpu[2].items() if float(g.norm()) > 1e-8)
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    log(f"[grad] {tag}: loss card {card[0]!r} cpu {cpu[0]!r} (rel {loss_rel:.3e}); terms card "
+        f"{json.dumps(card[1])} cpu {json.dumps(cpu[1])}")
+    log(f"[grad] {tag}: ||g_card - g_cpu|| / ||g_cpu|| = {diff / norm:.3e} over {len(cpu[2])} "
+        f"tensors (||g_cpu|| {norm:.4f}); worst tensor {worst[1]} rel {worst[0]:.3e}")
+    if not (math.isfinite(card[0]) and loss_rel <= GRAD_REL_LOSS):
+        fail(f"grad {tag}: card loss {card[0]} vs cpu {cpu[0]} (rel {loss_rel}) over {GRAD_REL_LOSS}")
+    if not diff <= GRAD_REL * norm:
+        fail(f"grad {tag}: ||g_card - g_cpu|| {diff} > {GRAD_REL} * ||g_cpu|| {norm}")
+
+
 def phase_grad(torch):
     from physdock_tpu_torch.ops import _flash_lib
 
@@ -646,26 +815,36 @@ def phase_grad(torch):
     torch.cuda.synchronize()
     launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
     cpu = train_loss_and_grads(torch, feats, "cpu")
-    diff = math.sqrt(sum(float(((card[2][n] - g) ** 2).sum()) for n, g in cpu[2].items()))
-    norm = math.sqrt(sum(float((g ** 2).sum()) for g in cpu[2].values()))
-    worst = max((float((card[2][n] - g).norm() / g.norm()), n)
-                for n, g in cpu[2].items() if float(g.norm()) > 1e-8)
-    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
-    log(f"[grad] loss card {card[0]!r} cpu {cpu[0]!r} (rel {loss_rel:.3e}); terms card "
-        f"{json.dumps(card[1])} cpu {json.dumps(cpu[1])}")
-    log(f"[grad] ||g_card - g_cpu|| / ||g_cpu|| = {diff / norm:.3e} over {len(cpu[2])} tensors "
-        f"(||g_cpu|| {norm:.4f}); worst tensor {worst[1]} rel {worst[0]:.3e}")
+    compare_grads("plain step", card, cpu)
     log(f"[grad] launches: {json.dumps(launches)}; rows 5-6 by design: {json.dumps(routes)}")
-    if not (math.isfinite(card[0]) and loss_rel <= GRAD_REL_LOSS):
-        fail(f"grad: card loss {card[0]} vs cpu {cpu[0]} (rel {loss_rel}) over {GRAD_REL_LOSS}")
-    if not diff <= GRAD_REL * norm:
-        fail(f"grad: ||g_card - g_cpu|| {diff} > {GRAD_REL} * ||g_cpu|| {norm}")
     want = ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa")
     missing = [n for n in want if launches[n] <= 0]
     stray = [n for n in ("flash_sdpa_folded", "flash_sdpa_folded_v3") if launches[n] != 0]
     if missing or stray:
         fail(f"grad: under grad, not launched {missing}, launched though folded {stray}")
     check_tc_routes("grad", routes)
+
+    _flash_lib.reset_launches()
+    card = mini_rollout_loss_and_grads(torch, feats, "cuda")
+    torch.cuda.synchronize()
+    launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
+    cpu = mini_rollout_loss_and_grads(torch, feats, "cpu")
+    compare_grads("mini-rollout step (corrupt pose)", card, cpu)
+    head = {n: g for n, g in card[2].items() if n.startswith("confidence_module.")}
+    dead = [n for n, g in head.items() if not float(g.abs().max()) > 0]
+    head_diff = math.sqrt(sum(float(((g - cpu[2][n]) ** 2).sum()) for n, g in head.items()))
+    head_norm = math.sqrt(sum(float((cpu[2][n] ** 2).sum()) for n in head))
+    log(f"[grad] mini-rollout: {len(head)} head tensors, ||g_card - g_cpu|| / ||g_cpu|| over "
+        f"them {head_diff / head_norm:.3e}; without a gradient on the card: {dead}")
+    log(f"[grad] mini-rollout launches: {json.dumps(launches)}; rows 5-6: {json.dumps(routes)}")
+    if dead or not {"plddt_loss", "pae_loss", "pde_loss"} <= set(card[1]):
+        fail(f"grad mini-rollout: head tensors without gradient {dead}, or a loss missing: "
+             f"{sorted(card[1])}")
+    missing = [n for n in want if launches[n] <= 0]
+    stray = [n for n in ("flash_sdpa_folded", "flash_sdpa_folded_v3") if launches[n] != 0]
+    if missing or stray:
+        fail(f"grad mini-rollout: not launched {missing}, launched though folded {stray}")
+    check_tc_routes("grad mini-rollout", routes)
 
 
 def check_tc_routes(phase, routes):
@@ -677,7 +856,7 @@ def check_tc_routes(phase, routes):
 # ------------------------------------------------------------------- docks
 
 
-def dock(inputs, out, crop, atom_crop):
+def dock(inputs, out, crop, atom_crop, params=PARAMS, extra=()):
     """Guided redocking through the port's CLI entry point, with the
     accuracy gate's settings (OVERFIT_GATE.json: 40 steps, 2 rounds of 20
     poses, 64 conformers, pocket cutoff 6 A, fp32)."""
@@ -685,8 +864,8 @@ def dock(inputs, out, crop, atom_crop):
 
     feats = os.path.join(REPO, "demo", "redocking", "features")
     return redocking.main([
-        *inputs, "-o", out,
-        "--params", PARAMS,
+        *inputs, "-o", out, *extra,
+        "--params", params,
         "--model_name", "toy", "--crop_size", str(crop), "--atom_crop_size", str(atom_crop),
         "--msa_features_dir", os.path.join(feats, "msa_features"),
         "--uniprot_msa_features_dir", os.path.join(feats, "uniprot_msa_features"),
@@ -709,6 +888,135 @@ def phase_accuracy(work):
     return tops
 
 
+class HeadTimer:
+    """Times the pipeline's `_confidence_scores` (the head over every pose of
+    a dock) with the card synchronized around it, and apart the host's
+    metrics inside it (`infer.metrics.get_metrics`, after the logits'
+    copy to the host), and counts the launches made inside it, while
+    installed (a context manager)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []  # (poses, seconds) per dock
+        self.metrics_s = 0.0
+        self.launches = {}
+
+    def __enter__(self):
+        from physdock_tpu_torch.infer import metrics as metrics_lib
+        from physdock_tpu_torch.infer.pipeline import DockingPipeline
+        from physdock_tpu_torch.ops import _flash_lib
+
+        self.orig = orig = DockingPipeline._confidence_scores
+        self.orig_metrics = orig_metrics = metrics_lib.get_metrics
+        torch = self.torch
+
+        def timed_metrics(*args, **kw):
+            t0 = time.time()
+            out = orig_metrics(*args, **kw)
+            self.metrics_s += time.time() - t0
+            return out
+
+        def timed(pipe, batch, conditioning, poses, feats):
+            torch.cuda.synchronize()
+            before, t0 = dict(_flash_lib.LAUNCHES), time.time()
+            out = orig(pipe, batch, conditioning, poses, feats)
+            torch.cuda.synchronize()
+            self.calls.append((len(poses), time.time() - t0))
+            for k, n in _flash_lib.LAUNCHES.items():
+                self.launches[k] = self.launches.get(k, 0) + n - before[k]
+            return out
+
+        DockingPipeline._confidence_scores = timed
+        metrics_lib.get_metrics = timed_metrics
+        return self
+
+    def __exit__(self, *exc):
+        from physdock_tpu_torch.infer import metrics as metrics_lib
+        from physdock_tpu_torch.infer.pipeline import DockingPipeline
+
+        DockingPipeline._confidence_scores = self.orig
+        metrics_lib.get_metrics = self.orig_metrics
+
+
+def check_confidence(tag, r, out_dir):
+    """A result's per-pose confidence: one finite entry per pose in rank
+    order, ranking_confidence non-increasing, the rank order the argsort
+    of the float32 scores, confidence.json written."""
+    import numpy as np
+
+    conf = r.get("confidence")
+    if not conf or len(conf) != r["num_poses"]:
+        fail(f"{tag}: {r.get('system_id')}: {0 if not conf else len(conf)} confidence entries "
+             f"for {r['num_poses']} poses")
+    for m in conf:
+        if not (all(math.isfinite(m[k]) for k in ("mean_plddt", "ptm", "iptm",
+                                                   "ranking_confidence"))
+                and 0 <= m["mean_plddt"] <= 100 and 0 <= m["ptm"] <= 1 and 0 <= m["iptm"] <= 1):
+            fail(f"{tag}: {r.get('system_id')}: metrics out of range: {m}")
+    # the poses are ranked by the scores in float32, as in the JAX package:
+    # scores that differ below its precision tie, in argsort's order
+    scores = [float(np.float32(m["ranking_confidence"])) for m in conf]
+    if any(a < b for a, b in zip(scores, scores[1:])):
+        fail(f"{tag}: ranking_confidence (float32) increases along the rank order: {scores}")
+    # ties pass any order above, so the order itself must be the argsort of
+    # the scores by pose
+    by_pose = dict(zip(r["rank_order"], scores))
+    expect = [int(i) for i in np.argsort(-np.asarray([by_pose[i] for i in range(len(conf))],
+                                                     np.float32))]
+    if r["rank_order"] != expect:
+        fail(f"{tag}: {r.get('system_id')}: rank order {r['rank_order']} is not the argsort "
+             f"of ranking_confidence {expect}")
+    if not os.path.exists(os.path.join(out_dir, "confidence.json")):
+        fail(f"{tag}: {out_dir}/confidence.json missing")
+
+
+def phase_confidence(torch, work):
+    """The accuracy dock with the confidence weights, ranked by confidence."""
+    from physdock_tpu_torch.ops import _flash_lib
+
+    out = os.path.join(work, "confidence")
+    torch.cuda.synchronize()
+    _flash_lib.reset_launches()
+    t0 = time.time()
+    with HeadTimer(torch) as timer:
+        results = dock(["-f", SYSTEMS], out, 128, 1024, params=CONF_PARAMS,
+                       extra=["--enable_confidence", "--confidence_ranking"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_flash_lib.LAUNCHES)
+    if len(results) != 4:
+        fail(f"confidence dock returned {len(results)} results, expected 4")
+    tops = {}
+    for r in results:
+        if "error" in r or not r.get("top5_rmsd"):
+            fail(f"confidence dock: {r.get('system_id')}: {r.get('error', 'no rmsd')}")
+        check_confidence("confidence dock", r, os.path.join(out, r["system_id"]))
+        tops[r["system_id"]] = r["top5_rmsd"][0]
+        c0 = r["confidence"][0]
+        log(f"[confidence] {r['system_id']}: confidence-ranked top-1 {r['top5_rmsd'][0]:.4f} A "
+            f"(best of {r['num_poses']} poses {min(r['all_rmsd']):.4f} A); top-1 mean_plddt "
+            f"{c0['mean_plddt']:.3f} ptm {c0['ptm']:.4f} iptm {c0['iptm']:.4f} "
+            f"ranking_confidence {c0['ranking_confidence']:.4f}; rounds_s "
+            f"{r['timings']['rounds_s']}")
+    poses = sum(n for n, _ in timer.calls)
+    head_s = sum(t for _, t in timer.calls)
+    rounds_s = sum(r["timings"]["rounds_s"] for r in results)
+    log(f"[confidence] head: {poses} poses in {head_s:.3f} s, {head_s / poses:.5f} s per pose "
+        f"(per system {json.dumps([round(t / n, 5) for n, t in timer.calls])}), of which the "
+        f"host's metrics {timer.metrics_s / poses:.5f} s per pose; trunk, sampler "
+        f"and head together (rounds_s) {rounds_s:.3f} s, of which the head "
+        f"{head_s / rounds_s:.1%}; wall {wall:.2f} s")
+    log(f"[confidence] launches in the head: {json.dumps(timer.launches)}; in the whole dock: "
+        f"{json.dumps(launches)}")
+    bad = {k: v for k, v in tops.items() if not (v < 2.0)}
+    if bad:
+        fail(f"confidence dock: confidence-ranked top-1 RMSD >= 2 A: {bad}")
+    missing = [k for k in ("flash_sdpa_folded", "flash_sdpa") if timer.launches[k] <= 0]
+    if missing:
+        fail(f"confidence dock: the head never launched {missing}")
+    return tops, launches, timer.launches
+
+
 def phase_main(work):
     return dock(["-i", os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")],
                 os.path.join(work, "main"), 256, 2048)
@@ -723,12 +1031,13 @@ def phase_main(work):
 SCREEN_ROUNDS, SCREEN_POSES, SCREEN_MAX = 2, 20, 20
 
 
-def screen_flags(out, batch_size):
+def screen_flags(out, batch_size, smiles=os.path.join(SCREEN, "demo_db.txt"), params=PARAMS,
+                 extra=()):
     """The screening CLI's flags: the main dock's settings, 20 poses kept."""
     feats = os.path.join(SCREEN, "features")
     return [
-        "-i", os.path.join(SCREEN, "6kzd.pkl.gz"), "-s", os.path.join(SCREEN, "demo_db.txt"),
-        "-o", out, "--params", PARAMS, "--model_name", "toy",
+        "-i", os.path.join(SCREEN, "6kzd.pkl.gz"), "-s", smiles, *extra,
+        "-o", out, "--params", params, "--model_name", "toy",
         "--crop_size", "256", "--atom_crop_size", "2048",
         "--msa_features_dir", os.path.join(feats, "msa_features"),
         "--uniprot_msa_features_dir", os.path.join(feats, "uniprot_msa_features"),
@@ -909,6 +1218,25 @@ def phase_screen(torch, work, card):
         if missing:
             fail(f"screen vs{bs}: never launched {missing}")
         runs[bs] = launches
+
+    # one ligand after the other with the confidence weights, scored and
+    # ranked by the head
+    lib = os.path.join(work, "screen_conf.txt")
+    with open(lib, "w") as f:
+        f.write("\n".join(smiles[:2]) + "\n")
+    out = os.path.join(work, "screen_conf")
+    with HeadTimer(torch) as timer:
+        res = screening.main(screen_flags(out, 1, smiles=lib, params=CONF_PARAMS,
+                                          extra=["--enable_confidence", "--confidence_ranking"]))
+    md5 = load_json(os.path.join(out, "smiles_to_md5.json"))
+    if len(res) != 2 or any("error" in r for r in res):
+        fail(f"confidence screen: {res}")
+    for r in res:
+        check_confidence("confidence screen", r, os.path.join(out, md5[r["smiles"]]))
+    log(f"[screen] confidence, --vs_batch_size 1, 2 SMILES: poses {[r['num_poses'] for r in res]}, "
+        f"top-1 ranking_confidence {[round(r['confidence'][0]['ranking_confidence'], 4) for r in res]}; "
+        f"head {sum(t for _, t in timer.calls):.3f} s over {sum(n for n, _ in timer.calls)} poses "
+        f"(crop 256/2048), the host's metrics {timer.metrics_s:.3f} s of it")
     return runs
 
 
@@ -917,8 +1245,12 @@ def phase_screen(torch, work, card):
 TRAIN_STEPS = 3
 
 
-def phase_train(torch, work):
-    """The train CLI at full width; returns launches per step."""
+MINI_FLAGS = ["--use_mini_rollout", "--mini_rollout_steps", "12", "--alpha_pae", "1.0"]
+
+
+def phase_train(torch, work, mini=False):
+    """The train CLI at full width (with `mini`, the mini-rollout run with
+    the confidence head); returns launches per step."""
     from physdock_tpu_torch.cli.common import load_model
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.model.physdock import PhysDock
@@ -929,11 +1261,13 @@ def phase_train(torch, work):
     from physdock_tpu_torch.train.optim import make_optimizer
     from physdock_tpu_torch.train.step import init_train_state
 
+    tag = "train mini-rollout" if mini else "train"
     data = os.path.join(work, "train_data", "train_val")
-    os.makedirs(data)
-    for f in sorted(os.listdir(SYSTEMS)):
-        os.symlink(os.path.join(SYSTEMS, f), os.path.join(data, f))
-    out = os.path.join(work, "train_ckpt")
+    if not os.path.isdir(data):
+        os.makedirs(data)
+        for f in sorted(os.listdir(SYSTEMS)):
+            os.symlink(os.path.join(SYSTEMS, f), os.path.join(data, f))
+    out = os.path.join(work, "train_ckpt_mini" if mini else "train_ckpt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _flash_lib.reset_launches()
@@ -942,7 +1276,7 @@ def phase_train(torch, work):
         "--dataset_dir", os.path.dirname(data), "-o", out, "--model_name", "medium",
         "--crop_size", "256", "--atom_crop_size", "2048", "--num_augmentation_sample", "48",
         "--batch_size", "1", "--total_steps", str(TRAIN_STEPS), "--save_every", str(TRAIN_STEPS),
-        "--seed", "0", "--device", "cuda",
+        "--seed", "0", "--device", "cuda", *(MINI_FLAGS if mini else []),
     ])
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -951,37 +1285,46 @@ def phase_train(torch, work):
     state, model = res["state"], res["model"]
     n_params = sum(p.numel() for p in model.parameters())
     losses = [lg["loss"] for lg in res["logs"]]
-    log(f"[train] medium ({n_params} parameters) crop 256/2048, 48 samples: steps "
-        f"{res['steps']} losses {losses} sampler retries {res['retries']}")
+    log(f"[{tag}] medium ({n_params} parameters) crop 256/2048, 48 samples"
+        f"{' ' + ' '.join(MINI_FLAGS) if mini else ''}: steps {res['steps']} losses {losses} "
+        f"sampler retries {res['retries']}")
     for lg in res["logs"]:
-        log(f"[train]   {json.dumps(lg)}")
+        log(f"[{tag}]   {json.dumps(lg)}")
     sec, wait = res["step_seconds"], res["wait_seconds"]
-    log(f"[train] seconds per step {sec} (steps 2-3 mean {sum(sec[1:]) / len(sec[1:]):.3f}), "
+    log(f"[{tag}] seconds per step {sec} (steps 2-3 mean {sum(sec[1:]) / len(sec[1:]):.3f}), "
         f"of which waiting for the batch and its copy {wait}; peak memory allocated {peak} B "
         f"({peak / 2**30:.2f} GiB); wall {wall:.2f} s")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    log(f"[train] launches per step: {json.dumps(per_step)}; rows 5-6 by design: {json.dumps(routes)}")
+    log(f"[{tag}] launches per step: {json.dumps(per_step)}; rows 5-6 by design: "
+        f"{json.dumps(routes)}")
     if res["steps"] != list(range(1, TRAIN_STEPS + 1)) or not all(
             math.isfinite(v) for lg in res["logs"] for v in lg.values()):
-        fail(f"train: steps {res['steps']} or non-finite losses {res['logs']}")
+        fail(f"{tag}: steps {res['steps']} or non-finite losses {res['logs']}")
+    if mini and not all({"plddt_loss", "pae_loss", "pde_loss"} <= set(lg) for lg in res["logs"]):
+        fail(f"{tag}: the confidence losses were not logged: {res['logs']}")
     if res["retries"] != 0:
-        fail(f"train: {res['retries']} sampler retries")
+        fail(f"{tag}: {res['retries']} sampler retries")
     for n in ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa"):
         if launches[n] <= 0:
-            fail(f"train: {n} never launched")
-    check_tc_routes("train", routes)
+            fail(f"{tag}: {n} never launched")
+    check_tc_routes(tag, routes)
 
     t0 = time.time()
-    init = load_model(None, PhysDockConfig.named("medium", num_augmentation_sample=48), seed=0)
+    init = load_model(None, PhysDockConfig.named("medium", num_augmentation_sample=48), seed=0,
+                      with_confidence=mini)
     init_sd = init.state_dict()
-    moved_p = sum(float((state.params[n].detach().cpu() - init_sd[n]).abs().sum()) for n in init_sd)
-    moved_e = sum(float((state.ema_params[n].cpu() - init_sd[n]).abs().sum()) for n in init_sd)
-    log(f"[train] sum |params - init| {moved_p:.6g}, sum |ema - init| {moved_e:.6g}")
-    if not (moved_p > 0 and moved_e > 0):
-        fail("train: params or EMA did not move")
+    moved = {}
+    for part, names in (("all", list(init_sd)),
+                        ("head", [n for n in init_sd if n.startswith("confidence_module.")])):
+        moved[part] = (
+            sum(float((state.params[n].detach().cpu() - init_sd[n]).abs().sum()) for n in names),
+            sum(float((state.ema_params[n].cpu() - init_sd[n]).abs().sum()) for n in names))
+    log(f"[{tag}] sum |params - init|, sum |ema - init|: {json.dumps(moved)}")
+    if not all(x > 0 for part in (("all", "head") if mini else ("all",)) for x in moved[part]):
+        fail(f"{tag}: params or EMA did not move: {moved}")
     path = res["checkpoints"][-1] if res["checkpoints"] else None
     if path != ckpt_lib.latest_checkpoint(out) or not path.endswith(f"step_{TRAIN_STEPS:08d}.pt"):
-        fail(f"train: checkpoint {path} is not the newest step-{TRAIN_STEPS} one")
+        fail(f"{tag}: checkpoint {path} is not the newest step-{TRAIN_STEPS} one")
     fresh = init_train_state(init, make_optimizer())
     restored = ckpt_lib.restore_train_state(path, fresh)
     same = restored.step == TRAIN_STEPS and all(
@@ -990,12 +1333,16 @@ def phase_train(torch, work):
         and torch.equal(restored.opt_state.mu[n], state.opt_state.mu[n].cpu())
         for n in state.params)
     if not same:
-        fail(f"train: the step-{TRAIN_STEPS} checkpoint does not restore the train state")
-    npz = os.path.join(work, "ema_params.npz")
+        fail(f"{tag}: the step-{TRAIN_STEPS} checkpoint does not restore the train state")
+    npz = os.path.join(work, "ema_params_mini.npz" if mini else "ema_params.npz")
     ckpt_lib.save_params_npz(npz, state.ema_params)
-    load_jax_params(PhysDock(model.cfg), npz)  # every key used exactly once, or it raises
-    log(f"[train] checkpoint {os.path.basename(path)} restores; EMA exported "
-        f"({os.path.getsize(npz)} B) and loaded into a fresh model ({time.time() - t0:.2f} s)")
+    # every key used exactly once, or it raises
+    counts = load_jax_params(PhysDock(model.cfg, with_confidence=mini), npz)
+    if counts["unused_head_keys"]:
+        fail(f"{tag}: the exported EMA left keys unused: {counts}")
+    log(f"[{tag}] checkpoint {os.path.basename(path)} restores; EMA exported "
+        f"({os.path.getsize(npz)} B, {counts['keys']} arrays) and loaded into a fresh model"
+        f"{' with the head' if mini else ''} ({time.time() - t0:.2f} s)")
     return per_step
 
 
@@ -1043,6 +1390,10 @@ def main():
     log(f"[train_kernels] rows 2 and 4 at {len(TRAIN_FWD_SITES)} training sites and rows 5-6 "
         f"at 2 sites, x 2 dtypes, match their plain versions ({time.time() - t0:.2f} s)")
     t0 = time.time()
+    conf_rows = phase_conf_kernels(torch)
+    log(f"[conf_kernels] rows 3 and 4 at the confidence head's {len(CONF_SITES)} dock sites, "
+        f"x 2 dtypes, match their plain versions ({time.time() - t0:.2f} s)")
+    t0 = time.time()
     phase_model(torch)
     log(f"[model] card matches the CPU at crop 256/2048 ({time.time() - t0:.2f} s)")
     t0 = time.time()
@@ -1060,6 +1411,11 @@ def main():
     bad = {k: v for k, v in tops.items() if not (v < 2.0)}
     if bad:
         fail(f"accuracy dock: top-ranked RMSD >= 2 A: {bad}")
+
+    t0 = time.time()
+    conf_tops, conf_launches, head_launches = phase_confidence(torch, work)
+    log(f"[confidence] confidence-ranked top-1 RMSD (A): {json.dumps(conf_tops)} "
+        f"({time.time() - t0:.2f} s)")
 
     torch.cuda.synchronize()
     _flash_lib.reset_launches()
@@ -1088,6 +1444,9 @@ def main():
     t0 = time.time()
     per_step = phase_train(torch, work)
     log(f"[train] done ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    mini_per_step = phase_train(torch, work, mini=True)
+    log(f"[train mini-rollout] done ({time.time() - t0:.2f} s)")
 
     t0 = time.time()
     phase_lockstep(torch)
@@ -1119,6 +1478,17 @@ def main():
                                     ("library_ms", pre + "library_ms"))}
                 for n, site, _ in TRAIN_FWD_SITES if n == name},
             "screen_launches": {f"vs{bs}": n[name] for bs, n in screen_launches.items()},
+            "confidence_dock_launches": conf_launches[name],
+            "confidence_head_launches": head_launches[name],
+            "mini_rollout_launches_per_step": mini_per_step[name],
+            "confidence_sites": {
+                site: {k: conf_rows[(n, site, dt)][f]
+                       for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
+                       for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
+                                    ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
+                                    ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
+                                    ("library_ms", pre + "library_ms"))}
+                for n, site, _ in CONF_SITES if n == name},
         })
         if name == SCREEN_SITE[0]:
             kernels[-1]["screen_site"] = {
@@ -1149,9 +1519,13 @@ def main():
                              ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
                              ("library_ms", pre + "library_ms"))}},
             "train_launches_per_step": per_step[name],
+            "confidence_dock_launches": conf_launches[name],
+            "confidence_head_launches": head_launches[name],
+            "mini_rollout_launches_per_step": mini_per_step[name],
         })
     log(json.dumps({"kernels": kernels}))
-    log(f"[summary] wall {time.time() - t_all:.2f} s")
+    log(f"[summary] wall {time.time() - t_all:.2f} s (the run before the confidence phases: "
+        f"{EARLIER_WALL_S} s)")
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,12 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "(e.g. 7.4); <0 = off")
     p.add_argument("--smiles_canonical_tautomer", action="store_true",
                    help="canonicalize SMILES ligand tautomers before embedding")
+    p.add_argument("--enable_confidence", action="store_true",
+                   help="score poses with the trained confidence head (pLDDT/PAE/pTM/ipTM "
+                        "per pose, confidence.json; needs --params trained with the head)")
+    p.add_argument("--confidence_ranking", action="store_true",
+                   help="rank poses by 0.8*ipTM + 0.2*pTM - has_clash instead of geometric "
+                        "KMeans medoids (implies --enable_confidence)")
 
 
 def build_pipeline(args):
@@ -88,7 +94,8 @@ def build_pipeline(args):
         seed=args.seed,
         use_x_gt_ligand_as_ref_pos=args.ebable_x_gt_ligand_as_ref_pos,
     )
-    model = load_model(args.params, cfg, seed=args.seed)
+    want_confidence = args.enable_confidence or args.confidence_ranking
+    model = load_model(args.params, cfg, seed=args.seed, with_confidence=want_confidence)
     settings = SamplerSettings(
         max_samples=args.max_samples,
         num_samples_per_round=args.num_samples_per_round,
@@ -101,20 +108,30 @@ def build_pipeline(args):
         rho=args.rho,
         enable_ranking=args.enable_ranking,
         seed=args.seed,
+        enable_confidence=want_confidence,
+        confidence_ranking=args.confidence_ranking,
     )
     return DockingPipeline(cfg, model, featurizer, settings, device=device)
 
 
-def load_model(path: Optional[str], cfg, seed: int = 0):
-    """PhysDock with weights from a JAX `.npz` (every key used exactly
-    once), or random weights from `seed` when no path is given."""
+def load_model(path: Optional[str], cfg, seed: int = 0, with_confidence: bool = False):
+    """PhysDock, with the confidence head when asked, with weights from a
+    JAX `.npz` (every key used exactly once; a file's confidence head is
+    left unused, and counted, by a model without one, as the JAX CLI
+    allows; a model with the head raises ValueError on a file without
+    it), or random weights from `seed` when no path is given."""
     from physdock_tpu_torch.model.physdock import PhysDock
     from physdock_tpu_torch.model.weights import load_jax_params
 
+    if path is not None and not path.endswith(".npz"):
+        raise ValueError(f"--params takes the JAX .npz artifact, got {path}")
     gen = torch.Generator().manual_seed(seed)
-    model = PhysDock(cfg.model, dtype=cfg.dtypes.compute_dtype, generator=gen)
+    model = PhysDock(cfg.model, dtype=cfg.dtypes.compute_dtype, generator=gen,
+                     with_confidence=with_confidence)
     if path is not None:
-        if not path.endswith(".npz"):
-            raise ValueError(f"--params takes the JAX .npz artifact, got {path}")
-        load_jax_params(model, path)
+        counts = load_jax_params(model, path)
+        if counts["unused_head_keys"]:
+            print(f"[params] {path}: {counts['unused_head_keys']} confidence-head arrays "
+                  f"({counts['unused_head_params']} parameters) unused: the model has no "
+                  f"head (--enable_confidence builds it)", flush=True)
     return model

@@ -6,6 +6,9 @@ Predict poses of known ligands in prepared systems:
 
 Runs on CUDA unless `--device cpu` is given.  Systems dock one after the
 other; a system that fails ends the run with its error (non-zero exit).
+`--enable_confidence` scores every pose with the confidence head (params
+trained with it, e.g. `_confidence/ema_params_conf.npz`) into
+`confidence.json`; `--confidence_ranking` also ranks the poses by it.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ The GT ligand of the system pkl defines the pocket and crop centre; the
 ligand itself is replaced by each query SMILES.  Outputs go to
 `out/md5(smi)/`, with `smiles_to_md5.json` and `screening_results.json`
 (`screening_results.shardNNN.json` for one shard of several).  Runs on
-CUDA unless `--device cpu` is given.
+CUDA unless `--device cpu` is given.  The confidence flags score each
+ligand's poses when ligands dock one at a time (`--vs_batch_size 1`); the
+batched screen scores no confidence, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -10,8 +10,12 @@ GT pocket frame, rank and write PDB/SDF.  The round loop calls the trunk
 and the sampler directly.  Screening docks a SMILES list into one
 receptor, one ligand at a time or in groups of same-shaped ligand-systems
 that share one sampler pass (`model/diffusion.sample_diffusion_batched`);
-the trunk runs once per system and round.  Not ported here: `dock_many`,
-the featurizer worker, confidence scoring, side-chain relaxation and the
+the trunk runs once per system and round.  With `enable_confidence` the
+confidence head scores every pose of a dock with the last round's (s, z),
+one pose at a time (`_confidence_scores`), into `confidence.json`, and
+`confidence_ranking` ranks the poses by its `ranking_confidence`; the
+batched screen scores no confidence, as in the JAX package.  Not ported
+here: `dock_many`, the featurizer worker, side-chain relaxation and the
 pose-check report.
 """
 
@@ -30,6 +34,7 @@ import torch
 from physdock_tpu_torch.config import PhysDockConfig
 from physdock_tpu_torch.data.embed import generate_conformers
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
+from physdock_tpu_torch.infer import metrics as metrics_lib
 from physdock_tpu_torch.infer import ranking as ranking_lib
 from physdock_tpu_torch.infer import writers
 from physdock_tpu_torch.infer.rounds import RoundProtocol, pairwise
@@ -43,7 +48,7 @@ from physdock_tpu_torch.model.diffusion import (
     stacked_conditioning,
 )
 from physdock_tpu_torch.model.forcefield import build_ligand_ff, chirality_correct
-from physdock_tpu_torch.model.physdock import PhysDock
+from physdock_tpu_torch.model.physdock import PhysDock, prepare_batch
 from physdock_tpu_torch.utils.io import dump_json, md5_string
 
 
@@ -73,6 +78,11 @@ class SamplerSettings:
     step_scale_eta: float = 1.5
     enable_ranking: bool = True
     seed: int = 0
+    # the confidence head at inference (the model must have it): per-pose
+    # pLDDT/PAE/pTM/ipTM metrics, and optionally the poses ranked by
+    # 0.8*ipTM + 0.2*pTM - has_clash instead of the geometric KMeans medoids
+    enable_confidence: bool = False
+    confidence_ranking: bool = False
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -245,18 +255,44 @@ class DockingPipeline:
             if protocol.done:
                 break
         poses = protocol.final_poses() if guided else x[: s.max_samples]
+        conf_metrics = rank_scores = None
+        if s.enable_confidence:
+            conf_metrics, rank_scores = self._confidence_scores(batch, conditioning, poses, feats)
         timings["rounds_s"] = round(time.time() - t_start - t_feat, 3)
         res = self._postprocess(feats, meta, poses, output_dir, remove_ligand=remove_ligand,
                                 smi=smi, rounds_run=rounds_run, t_feat=t_feat,
-                                t_start=t_start, write_outputs=write_outputs)
+                                t_start=t_start, write_outputs=write_outputs,
+                                conf_metrics=conf_metrics,
+                                rank_scores=rank_scores if s.confidence_ranking else None)
         res["timings"] = timings
         return res
 
+    def _confidence_scores(self, batch, conditioning, poses: np.ndarray, feats):
+        """Per-pose confidence metrics from the head, every pose scored
+        with the last round's trunk embeddings (s, z), one pose at a time.
+        Returns (metrics list, ranking_confidence array)."""
+        if not self.model.with_confidence:
+            raise ValueError(
+                "enable_confidence requires a model/params built with "
+                "with_confidence=True (train with --use_mini_rollout)")
+        batch = prepare_batch(batch)
+        _, _, s_emb, z_emb = conditioning
+        out, scores = [], []
+        for i in range(len(poses)):
+            x = torch.as_tensor(np.asarray(poses[i: i + 1], np.float32), device=self.device)
+            p_pae, _, p_plddt = self.model.confidence(batch, s_emb, z_emb, x)
+            m = metrics_lib.get_metrics(p_pae.cpu().numpy(), p_plddt.cpu().numpy(), poses[i],
+                                        feats)
+            out.append(m)
+            scores.append(m["ranking_confidence"])
+        return out, np.asarray(scores, np.float32)
+
     def _postprocess(self, feats, meta, poses: np.ndarray, output_dir: str, *,
                      remove_ligand: bool, smi: Optional[str], rounds_run: int,
-                     t_feat: float, t_start: float, write_outputs: bool) -> Dict:
-        """Align to the GT pocket-CA frame, rank, score and write outputs
-        (redocking.py:341-447)."""
+                     t_feat: float, t_start: float, write_outputs: bool,
+                     conf_metrics=None, rank_scores=None) -> Dict:
+        """Align to the GT pocket-CA frame, rank (by `rank_scores`, higher
+        first, when given), score and write outputs (redocking.py:341-447)."""
         lig_idx = np.asarray(meta["ligand_atom_idx"])
         x_gt = np.asarray(feats["x_gt"])
         aligned, order, lig_rmsds = ranking_lib.postprocess_poses(
@@ -269,6 +305,7 @@ class DockingPipeline:
             a_mask=np.asarray(feats["a_mask"]),
             enable_ranking=self.s.enable_ranking,
             compute_rmsd=bool(len(lig_idx)) and not remove_ligand and smi is None,
+            rank_scores=rank_scores,
         )
         result = {
             "system_id": meta["system_id"],
@@ -282,6 +319,9 @@ class DockingPipeline:
             "n_atoms_padded": int(np.shape(feats["ref_pos"])[-2]),
             "n_tokens_padded": int(np.shape(feats["s_mask"])[-1]),
         }
+        if conf_metrics is not None:
+            # rank-ordered, so confidence[0] belongs to pred_rank0
+            result["confidence"] = [conf_metrics[i] for i in order]
         if write_outputs:
             os.makedirs(output_dir, exist_ok=True)
             writers.write_pdb(x_gt, meta, os.path.join(output_dir, "gt.pdb"))
@@ -295,6 +335,8 @@ class DockingPipeline:
             if lig_rmsds:
                 dump_json({"top5_rmsd": lig_rmsds[:5], "rank_order": order},
                           os.path.join(output_dir, "top5_rmsd.json"))
+            if conf_metrics is not None:
+                dump_json(result["confidence"], os.path.join(output_dir, "confidence.json"))
         return result
 
     # ------------------------------------------------------------ screening

@@ -1,11 +1,15 @@
 """The PhysDock model: conditioning trunk + AF3DiT denoiser + distogram
-head (port of `physdock_tpu/model/physdock.py`).
+head, and the optional confidence head (port of
+`physdock_tpu/model/physdock.py`).
 
   * `forward(batch, generator)` -- the training forward: EDM-noise
     `num_augmentation_sample` augmented copies of x_gt and denoise them all;
-    returns {x_denoised, x_hat, t_hat, p_distogram}
+    returns {x_denoised, x_hat, t_hat, p_distogram} and the trunk's
+    (a, ap, s, z) under `conditioning`
   * `forward_noised(batch, x_hat, t_hat)` -- the same from given noise (the
     seam through which tests feed the JAX package's x_hat / t_hat)
+  * `confidence(batch, s, z, x_pred)` -- the PAE/PDE/pLDDT logits of a
+    pose (`with_confidence=True` only)
   * `conditioning(batch)` -- (a, ap, s, z), once per system and round
   * `denoise_bias_cache(batch, ap, z)` -- per-block DiT biases, once per round
   * `denoise(batch, x_hat, t_hat, a, ap, s, z, bias_cache)` -- one denoiser call
@@ -21,6 +25,7 @@ from torch import nn
 from physdock_tpu_torch.config import ModelConfig
 from physdock_tpu_torch.model.compact import expand_batch
 from physdock_tpu_torch.nn.conditioning import DiffusionConditioning
+from physdock_tpu_torch.nn.confidence import ConfidenceModule
 from physdock_tpu_torch.nn.primitives import Linear
 from physdock_tpu_torch.nn.transformers import AF3DiT
 from physdock_tpu_torch.utils.geometry import (
@@ -48,11 +53,13 @@ def prepare_batch(batch: Batch) -> Batch:
 
 
 class PhysDock(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype=torch.float32, generator=None):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, generator=None,
+                 with_confidence: bool = False):
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
+        self.with_confidence = with_confidence
         skw = dict(inf=c.inf, eps=c.eps, dtype=dtype, generator=generator)
         self.diffusion_conditioning = DiffusionConditioning(
             c.ref_dim, c.target_dim, c.msa_dim, c.c_a, c.c_ap, c.c_s, c.c_m, c.c_z,
@@ -63,6 +70,10 @@ class PhysDock(nn.Module):
         # the distogram head is training-only (`forward`)
         self.linear_distogram = Linear(c.c_z, c.no_distogram_bins, init="final", dtype=dtype,
                                        generator=generator)
+        if with_confidence:
+            # made last, so a model without the head draws the same weights
+            self.confidence_module = ConfidenceModule(
+                c.c_s, c.c_a, c.c_ap, c.c_z, c.no_blocks_heads, c.no_blocks_atom, **skw)
 
     def conditioning(self, batch: Batch):
         return self.diffusion_conditioning(prepare_batch(batch))
@@ -76,6 +87,13 @@ class PhysDock(nn.Module):
     def denoise_bias_cache(self, batch: Batch, ap, z):
         batch = prepare_batch(batch)
         return self.dit.compute_bias_cache(ap, z, batch["ap_mask"], batch["z_mask"])
+
+    def confidence(self, batch: Batch, s, z, x_pred):
+        """PAE/PDE/pLDDT logits of the pose x_pred [S, A, 3] (sample 0) from
+        the trunk's s and z."""
+        if not self.with_confidence:
+            raise ValueError("this model has no confidence head (with_confidence=False)")
+        return self.confidence_module(prepare_batch(batch), s, z, x_pred)
 
     def distogram(self, z):
         p = self.linear_distogram(z).float()
@@ -103,8 +121,9 @@ class PhysDock(nn.Module):
         batch = prepare_batch(batch)
         a, ap, s, z = self.diffusion_conditioning(batch)
         x_denoised = self.denoise(batch, x_hat, t_hat, a, ap, s, z)
+        # the mini-rollout reuses the conditioning, so the trunk runs once per step
         return {"x_denoised": x_denoised, "x_hat": x_hat, "t_hat": t_hat,
-                "p_distogram": self.distogram(z)}
+                "p_distogram": self.distogram(z), "conditioning": (a, ap, s, z)}
 
     def forward(self, batch: Batch, generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:

@@ -7,7 +7,10 @@ scanned: one array per leaf under `blocks/`, whose leading axis is the
 block index.  The port names modules identically, holds one module per
 block in a `ModuleList` (`blocks.<i>.`) and stores `Linear.weight` as
 [out, in] where the JAX kernel is [in, out].  Every key is used exactly
-once in each direction; anything left over or missing raises.
+once in each direction; anything left over or missing raises, with one
+exception that the JAX CLI also makes: a model built without the
+confidence head loads a file that has one, and the head's keys are left
+unused and counted.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 PREFIX = "params/"
+HEAD = "confidence_module"  # the optional confidence head's module name
 
 
 def _is_linear_weight(parts, arr) -> bool:
@@ -84,11 +88,23 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_jax_params(model: torch.nn.Module, path: str) -> None:
+def load_jax_params(model: torch.nn.Module, path: str) -> Dict[str, int]:
     """Load a JAX `.npz` into `model`, requiring every parameter of the
-    file and of the model to be used exactly once."""
-    sd = jax_flat_to_state_dict(load_npz(path))
+    file and of the model to be used exactly once; when the model has no
+    confidence head, the file's head keys are set aside first, and when it
+    has one, a file without it raises ValueError. Returns
+    the counts: keys loaded, and head keys and parameters left unused."""
+    flat = load_npz(path)
     want = model.state_dict()
+    head_keys = {k for k in flat if k.startswith(PREFIX + HEAD + "/")}
+    unused = {}
+    if any(n.startswith(HEAD + ".") for n in want):
+        if not head_keys:
+            raise ValueError(f"the confidence head (--enable_confidence, --confidence_ranking, "
+                             f"--use_mini_rollout) needs params trained with it; {path} has none")
+    else:
+        unused = {k: flat.pop(k) for k in sorted(head_keys)}
+    sd = jax_flat_to_state_dict(flat)
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     if missing or extra:
@@ -98,3 +114,5 @@ def load_jax_params(model: torch.nn.Module, path: str) -> None:
         if tuple(t.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: file shape {tuple(t.shape)} != model {tuple(want[k].shape)}")
     model.load_state_dict(sd, strict=True)
+    return {"keys": len(flat), "unused_head_keys": len(unused),
+            "unused_head_params": int(sum(v.size for v in unused.values()))}

@@ -8,7 +8,8 @@ written to a temporary name and renamed, so a crash mid-save leaves no
 partial checkpoint).  `save_params_npz` / `load_params_npz` write and read
 the JAX package's flat `.npz` layout through the weight bridge, so the
 port's EMA weights load into the JAX package and the JAX package's into
-the port.
+the port.  A model with the confidence head carries it through both, by
+name like every other module.
 """
 
 from __future__ import annotations

@@ -13,11 +13,17 @@ device included, the checkpoint save not), that wait alone, checkpoints
 and sampler retries.  Resumes from
 the newest checkpoint in the output dir, or starts from `--init_from_ckpt`
 (a train-state `.pt` or a JAX `.npz` parameter artifact).
+`--use_mini_rollout` builds the confidence head and trains it on a short
+no-grad rollout of `--mini_rollout_steps` steps (the head's parameters
+then sit in the optimizer, the EMA, the checkpoints and the exported
+`.npz`); `--alpha_pae` sets the PAE loss weight (alpha_confidence *
+alpha_pae).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -48,6 +54,13 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=400)
     p.add_argument("--keep_ckpts", type=int, default=40)
     p.add_argument("--ema_decay", type=float, default=0.999)
+    p.add_argument("--use_mini_rollout", action="store_true",
+                   help="train the PAE/PDE/pLDDT confidence heads on a short no-grad rollout "
+                        "(train.sh --use-mini-rollout)")
+    p.add_argument("--mini_rollout_steps", type=int, default=12)
+    p.add_argument("--alpha_pae", type=float, default=None,
+                   help="override LossConfig.alpha_pae (pae weight = alpha_confidence * "
+                        "alpha_pae)")
     p.add_argument("--init_from_ckpt", default=None,
                    help="a train-state .pt of this trainer, or a JAX .npz parameter artifact")
     p.add_argument("--seed", type=int, default=0)
@@ -69,14 +82,20 @@ def main(argv=None):
 
     resume = args.init_from_ckpt or ckpt_lib.latest_checkpoint(args.ckpt_dir)
     npz = resume if resume and resume.endswith(".npz") else None
-    model = load_model(npz, cfg, seed=args.seed).to(device).train()
+    loss_cfg = cfg.loss
+    if args.alpha_pae is not None:
+        loss_cfg = dataclasses.replace(loss_cfg, alpha_pae=args.alpha_pae)
+    model = load_model(npz, cfg, seed=args.seed,
+                       with_confidence=args.use_mini_rollout).to(device).train()
     optimizer = make_optimizer(args.lr, args.warmup_steps)
     state = init_train_state(model, optimizer)
     if resume and npz is None:
         state = ckpt_lib.restore_train_state(resume, state)
         print(f"resumed from {resume} at step {state.step}", flush=True)
-    train_step = make_train_step(model, optimizer, cfg.loss, ema_decay=args.ema_decay,
-                                 sigma_data=cfg.model.sigma_data)
+    train_step = make_train_step(model, optimizer, loss_cfg, ema_decay=args.ema_decay,
+                                 sigma_data=cfg.model.sigma_data,
+                                 use_mini_rollout=args.use_mini_rollout,
+                                 mini_rollout_steps=args.mini_rollout_steps)
 
     featurizer = SystemFeaturizer(cfg.data, inference_mode=False, seed=args.seed,
                                   pad_to_bucket=False)

@@ -15,10 +15,18 @@ relative to max|plain| (fp32 1e-4, bf16 2e-2), and its tensor-core design
 rows with large logits (the dV-sum identity) and a bitwise-repeatable
 dbias; the autograd Functions
 against autograd through the plain version; and a CUDA wrapper called on
-inputs that require grad, outside a Function, must raise.
+inputs that require grad, outside a Function, must raise.  The confidence
+head with the committed confidence weights, on the card through the
+kernels against the CPU through their plain versions: its logits at a
+small shape with padded tokens (rel 1e-3 of max|cpu|, rows 3 and 4
+launched), and the mini-rollout loss and gradient on the corrupt-pose
+route (loss rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||, rows 5-6 on
+the tensor-core pair); the rollout route's loss is finite.
 """
 
+import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -390,3 +398,93 @@ def test_tc_pair_dbias_is_bitwise_repeatable(dtype):
     _, second = _run_pair(q, k, v, bias, do)
     assert torch.equal(first[3], second[3])
     assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3]))
+
+
+# ------------------------------------------------------------ confidence
+
+CONF_NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "_confidence", "ema_params_conf.npz")
+
+
+def _conf_setup(device, seed=2):
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.data.synthetic import make_synthetic_batch
+    from physdock_tpu_torch.model.physdock import PhysDock, prepare_batch
+    from physdock_tpu_torch.model.weights import load_jax_params
+
+    cfg = PhysDockConfig.named("toy", num_augmentation_sample=2)
+    model = PhysDock(cfg.model, with_confidence=True)
+    load_jax_params(model, CONF_NPZ)
+    batch = make_synthetic_batch(n_tokens=40, n_atoms=160, n_msa=4, n_ligand_tokens=8, seed=seed,
+                                 pad_tokens=8, pad_atoms=32)
+    b = prepare_batch({k: torch.from_numpy(np.array(v)).to(device) for k, v in batch.items()})
+    return cfg, model.to(device), b
+
+
+@pytest.mark.gpu
+def test_confidence_head_on_card_matches_cpu():
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    x = None
+    outs, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        _, model, b = _conf_setup(dev)
+        if x is None:  # two poses around the GT, 3 A of noise
+            x_gt = b["x_gt"].cpu().numpy()
+            x = x_gt[None] + rng.normal(size=(2,) + x_gt.shape) * 3.0
+        with torch.no_grad():
+            _, _, s, z = model.eval().conditioning(b)
+            _flash_lib.reset_launches()
+            outs[dev] = [t.float().cpu() for t in model.confidence(
+                b, s, z, torch.as_tensor(x, dtype=torch.float32, device=dev))]
+        launches[dev] = dict(_flash_lib.LAUNCHES)
+    for name, o, r in zip(("p_pae", "p_pde", "p_plddt"), outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(o).all()), name
+        err = float((o - r).abs().max() / r.abs().max())
+        assert err <= 1e-3, (name, err)
+    assert launches["cuda"]["flash_sdpa_folded"] > 0 and launches["cuda"]["flash_sdpa"] > 0
+    assert not any(launches["cpu"].values())
+
+
+def _mini_rollout_grads(device, corrupt, steps=12):
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import make_train_step
+
+    cfg, model, b = _conf_setup(device)
+    loss_cfg = dataclasses.replace(cfg.loss, alpha_pae=1.0, alpha_confidence=1.0)
+    step = make_train_step(model, make_optimizer(), loss_cfg, use_mini_rollout=True,
+                           mini_rollout_steps=steps, corrupt_rollout_pose=corrupt)
+    d = step.draw_system(b, torch.Generator().manual_seed(3))
+    loss, logs = step.loss_fn(b, d)
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    grads = {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+             for (n, p), g in zip(named, grads)}
+    return float(loss.detach()), {k: float(v.detach()) for k, v in logs.items()}, grads
+
+
+@pytest.mark.gpu
+def test_mini_rollout_gradient_on_card_matches_cpu():
+    _need_cuda()
+    _flash_lib.reset_launches()
+    card = _mini_rollout_grads("cuda", corrupt=True)
+    routes = dict(_flash_lib.ROUTES)
+    cpu = _mini_rollout_grads("cpu", corrupt=True)
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0]), (card[0], cpu[0])
+    assert {"plddt_loss", "pae_loss", "pde_loss"} <= set(card[1])
+    diff = math.sqrt(sum(float(((card[2][n] - g) ** 2).sum()) for n, g in cpu[2].items()))
+    norm = math.sqrt(sum(float((g ** 2).sum()) for g in cpu[2].values()))
+    assert diff <= 1e-3 * norm, (diff, norm)
+    dead = [n for n, g in card[2].items()
+            if n.startswith("confidence_module.") and not float(g.abs().max()) > 0]
+    assert not dead, dead
+    assert routes["fwd_lse_tc"] > 0 and routes["bwd_tc"] > 0, routes
+    assert routes["fwd_lse_simt"] == 0 and routes["bwd_simt"] == 0, routes
+
+
+@pytest.mark.gpu
+def test_mini_rollout_route_on_card_is_finite():
+    _need_cuda()
+    loss, logs, grads = _mini_rollout_grads("cuda", corrupt=False, steps=3)
+    assert math.isfinite(loss) and all(math.isfinite(v) for v in logs.values()), logs
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())

@@ -1,7 +1,8 @@
 """The PyTorch port must run where JAX is not installed.
 
-  * a static scan: no module of `physdock_tpu_torch/`, and not
-    `chip_smoke.py`, imports jax, jaxlib, flax, optax or physdock_tpu;
+  * a static scan: no module of `physdock_tpu_torch/` (the confidence
+    head and the pose corruption included), and not `chip_smoke.py`,
+    imports jax, jaxlib, flax, optax or physdock_tpu;
   * a subprocess whose `sys.meta_path` makes those imports raise docks one
     demo system through `physdock_tpu_torch.cli.redocking.main` on the CPU
     (tiny crop, 2 steps); the PDB and SDF it writes must parse;
@@ -46,6 +47,9 @@ def test_port_sources_import_nothing_of_jax():
                 if name.split(".")[0] in BLOCKED:
                     offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert len(_port_sources()) > 20
+    # the confidence slice's new modules are in the scan
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"physdock_tpu_torch/nn/confidence.py", "physdock_tpu_torch/train/corrupt.py"} <= scanned
     assert not offenders, offenders
 
 

@@ -7,6 +7,19 @@
     which the port takes through `PhysDock.forward_noised`;
   * the optimizer (global clip, Adam, schedule), the per-system clip and
     the EMA against the JAX package's optax chain over five steps;
+  * one composed step of `train.step.make_train_step` at batch size 2
+    against the JAX `make_train_step` (`step_parity`, which
+    tests/test_torch_confidence.py also runs on the mini-rollout route):
+    each system's x_hat and t_hat come from the JAX step's keys
+    (`jax.random.fold_in(key, i)`) through the step's `draws` seam; the
+    loss terms, and the change of the parameters, the Adam moments and the
+    EMA, are compared.  Adam's eps is 1 there and the learning rate 1e3:
+    with eps 1e-8 Adam's first update is lr * sign(g), which a rounding
+    difference flips in any near-zero gradient entry; with eps 1 it is
+    lr * g / (|g| + 1), linear in g, and a large lr lifts it far above the
+    parameters' fp32 ulp, so every quantity compares at the gradient's
+    limit (nu, quadratic in g, at twice it); the EMA decay is 0.5 for
+    the same reason;
   * the train CLI on the CPU (toy preset, crop 32/256, 2 steps) with a
     checkpoint that restores, and its EMA exported as the JAX `.npz`
     layout and loaded by the JAX package;
@@ -35,10 +48,14 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from physdock_tpu.config import PhysDockConfig as JaxConfig
+from physdock_tpu.data.synthetic import make_synthetic_batch
 from physdock_tpu.model.losses import physdock_loss as jax_physdock_loss
 from physdock_tpu.model.physdock import PhysDock as JaxPhysDock
+from physdock_tpu.parallel.mesh import batch_sharding, make_mesh
 from physdock_tpu.train import checkpoint as jax_ckpt
 from physdock_tpu.train import optim as jax_optim
+from physdock_tpu.train import step as jax_step
+from physdock_tpu.utils.geometry import uniform_random_rotation as jax_rotation
 from physdock_tpu_torch.config import PhysDockConfig
 from physdock_tpu_torch.model.losses import physdock_loss
 from physdock_tpu_torch.model.physdock import PhysDock
@@ -47,7 +64,7 @@ from physdock_tpu_torch.ops import _flash_lib
 from physdock_tpu_torch.train import checkpoint as ckpt
 from physdock_tpu_torch.train import optim, train
 from physdock_tpu_torch.train.sampler import WeightedSystemSampler, batch_iterator, prefetch
-from physdock_tpu_torch.train.step import init_train_state
+from physdock_tpu_torch.train.step import init_train_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "_overfit", "ema_params.npz")
@@ -91,6 +108,7 @@ def port_run(tiny_batch, jax_run):
     batch = {k: torch.from_numpy(np.asarray(v)) for k, v in tiny_batch.items()}
     out = model.forward_noised(batch, torch.from_numpy(out_j["x_hat"]),
                                torch.from_numpy(out_j["t_hat"]))
+    out.pop("conditioning")
     loss, logs = physdock_loss(out, batch, cfg.loss, sigma_data=cfg.model.sigma_data)
     named = list(model.named_parameters())
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
@@ -304,3 +322,115 @@ def test_prefetch_raises_the_producer_error():
     assert next(it) == 1
     with pytest.raises(ValueError, match="featurizer broke"):
         next(it)
+
+
+def _flat(tree):
+    return jax_flat_to_state_dict({"/".join(k): np.asarray(v)
+                                   for k, v in flatten_dict(tree).items()})
+
+
+def _jax_draws(jm, params, singles, key, corrupt):
+    """Each system's draws as the JAX step makes them: x_hat and t_hat from
+    `fold_in(key, i)` (its first split under the mini-rollout), and the
+    corrupt pose's five draws from the second split."""
+    draws = []
+    for i, single in enumerate(singles):
+        micro = {k: jnp.asarray(v) for k, v in single.items()}
+        k_fwd = jax.random.fold_in(key, i)
+        if corrupt:
+            k_fwd, k_roll = jax.random.split(k_fwd)
+        x_hat, t_hat = jm.apply(params, micro, k_fwd, method="augmentation_diffuse")
+        d = {"x_hat": torch.from_numpy(np.array(x_hat)),
+             "t_hat": torch.from_numpy(np.array(t_hat))}
+        if corrupt:
+            k_m, k_dir, k_rot, k_jl, k_jr = jax.random.split(k_roll, 5)
+            shape = micro["x_gt"].shape
+            d["corrupt"] = {k: torch.from_numpy(np.array(v)) for k, v in {
+                "u": jax.random.uniform(k_m), "direction": jax.random.normal(k_dir, (3,)),
+                "rot": jax_rotation(k_rot, ()), "jitter_lig": jax.random.normal(k_jl, shape),
+                "jitter_rec": jax.random.normal(k_jr, shape)}.items()}
+        draws.append(d)
+    return draws
+
+
+def step_parity(npz, singles, with_confidence=False, loss_overrides=None, n_aug=2, seed=7):
+    """One train step at batch size len(singles), JAX and port, from the
+    same weights and draws; returns (jax logs, port logs, {quantity: (JAX
+    change, port change)}) with the changes of params, mu, nu and EMA as
+    state_dicts. With the head, the step runs the mini-rollout on the
+    corrupt-pose route."""
+    import dataclasses
+
+    jcfg = JaxConfig.named("toy", num_augmentation_sample=n_aug)
+    jloss = dataclasses.replace(jcfg.loss, **(loss_overrides or {}))
+    jm = JaxPhysDock(cfg=jcfg.model, with_confidence=with_confidence)
+    params = jax_ckpt.load_params_npz(npz)
+    p0 = _flat(params)
+    key = jax.random.PRNGKey(seed)
+    stacked = {k: np.stack([np.asarray(s[k]) for s in singles]) for k in singles[0]}
+    draws = _jax_draws(jm, params, singles, key, with_confidence)
+    mesh = make_mesh(dp=1, devices=jax.devices()[:1])
+    jopt = jax_optim.make_optimizer(peak_lr=1e3, warmup_steps=1, eps=1.0)
+    jstep = jax_step.make_train_step(
+        jm, jopt, jloss, mesh, ema_decay=0.5, sigma_data=jcfg.model.sigma_data,
+        use_mini_rollout=with_confidence, corrupt_rollout_pose=with_confidence)
+    jbatch = jax.device_put({k: jnp.asarray(v) for k, v in stacked.items()},
+                            batch_sharding(mesh))
+    with jax.default_matmul_precision("highest"):
+        jstate, jlogs = jstep(jax_step.init_train_state(params, jopt), jbatch, key)
+    adam = jstate.opt_state[1]
+    ref = {"params": _flat(jstate.params), "mu": _flat(adam.mu), "nu": _flat(adam.nu),
+           "ema": _flat(jstate.ema_params)}
+    assert int(jstate.step) == 1 and int(adam.count) == 1
+
+    cfg = PhysDockConfig.named("toy", num_augmentation_sample=n_aug)
+    model = PhysDock(cfg.model, with_confidence=with_confidence)
+    load_jax_params(model, npz)
+    topt = optim.make_optimizer(peak_lr=1e3, warmup_steps=1, eps=1.0)
+    state = init_train_state(model, topt)
+    step = make_train_step(model, topt, dataclasses.replace(cfg.loss, **(loss_overrides or {})),
+                           ema_decay=0.5, sigma_data=cfg.model.sigma_data,
+                           use_mini_rollout=with_confidence,
+                           corrupt_rollout_pose=with_confidence)
+    state, logs = step(state, {k: torch.from_numpy(v) for k, v in stacked.items()},
+                       draws=draws)
+    assert state.step == 1 and state.opt_state.count == 1
+    got = {"params": state.params, "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+           "ema": state.ema_params}
+    changes = {}
+    for q in ref:
+        base = p0 if q in ("params", "ema") else {n: torch.zeros_like(t) for n, t in p0.items()}
+        assert set(ref[q]) == set(got[q]) == set(base), q
+        changes[q] = ({n: ref[q][n] - base[n] for n in base},
+                      {n: got[q][n].detach().float() - base[n] for n in base})
+    return {k: float(v) for k, v in jlogs.items()}, logs, changes
+
+
+def check_step_parity(jlogs, logs, changes):
+    """Loss terms within REL_LOSS; the change of each quantity within
+    REL_GRAD (nu 2 * REL_GRAD) of its norm over all tensors, and per tensor
+    except the zero-by-symmetry ones, which stay below GRAD_FLOOR of the
+    global norm on both sides."""
+    assert set(jlogs) == set(logs)
+    for name, r in jlogs.items():
+        assert abs(logs[name] - r) <= REL_LOSS * abs(r) + 1e-12, (name, logs[name], r)
+    for q, (ref, got) in changes.items():
+        rel = 2 * REL_GRAD if q == "nu" else REL_GRAD
+        total = np.sqrt(sum(float((r.double() ** 2).sum()) for r in ref.values()))
+        diff = np.sqrt(sum(float(((got[n] - r).double() ** 2).sum()) for n, r in ref.items()))
+        assert diff <= rel * total, (q, diff, total)
+        worst = (0.0, None)
+        for n, r in ref.items():
+            nr, ng = float(r.norm()), float(got[n].norm())
+            if ZERO_BY_SYMMETRY.fullmatch(n):
+                assert max(nr, ng) <= GRAD_FLOOR * total, (q, n, nr, ng)
+            elif nr > GRAD_FLOOR * total:
+                worst = max(worst, (float((got[n] - r).norm()) / nr, n))
+        print(f"{q}: global rel {diff / total:.3e}, worst tensor {worst[1]} rel {worst[0]:.3e}")
+        assert worst[0] <= rel, (q, worst)
+
+
+def test_train_step_batch2_matches_jax_step():
+    singles = [make_synthetic_batch(n_tokens=16, n_atoms=48, n_msa=4, n_ligand_tokens=6, seed=s)
+               for s in (0, 1)]
+    check_step_parity(*step_parity(NPZ, singles))
