@@ -23,7 +23,8 @@ exits non-zero (no phase is caught):
                  device time of CUDA-graph replays; and row 1 at the
                  batched screen's atom-DiT site (B 80 = 20 samples x 4
                  systems sample-major, H 4, S 1920, one bias per system:
-                 lead 16)
+                 lead 16), and row 3 at the batched redock's (the same
+                 with S 896)
   4. kernels (training) -- the kernels at the shapes and strides the
                  medium train run gives them (crop 256/2048, 48 samples):
                  flash_sdpa_grouped at the token DiT (B 48, H 16, S 256,
@@ -76,8 +77,25 @@ exits non-zero (no phase is caught):
                  non-zero gradient on the card
   7. accuracy -- guided redocking of the 4 demo systems with the committed
                  toy weights (_overfit/ema_params.npz) at crop 128/1024,
-                 40 steps, 2 rounds, 20 poses per round, fp32; every
-                 top-ranked ligand RMSD must be < 2 A
+                 40 steps, 2 rounds, 20 poses per round, fp32, through
+                 the CLI, which takes them through dock_many and the
+                 featurizer worker (no "[dock_many failed" line; the
+                 first system featurized in process, the worker's
+                 receive timings in every later result); every
+                 top-ranked ligand RMSD must be < 2 A, rows 2-4 launched,
+                 and every system directory must hold a bust_report.json
+                 of five entries, each with pose_valid
+ 7a. redock_many -- the 4 systems one after the other with
+                 DockingPipeline.dock, featurized in process (what the
+                 CLI does for one system), each held to its dock_many
+                 result (rank order equal, pose RMSDs within 1e-4 A); then
+                 --dock_batch_size 4 (counts reset before, read after:
+                 rows 2-4 launched; top-1 < 2 A on 4/4; the group padded
+                 to phase 3's redock site; group sizes and rounds_s
+                 printed); then 5SAK_ZRY_A_1 with
+                 --enable_sidechain_relaxation (top-1 < 2 A); the
+                 sequential, dock_many and batched walls, and the seconds
+                 per system of check_pose and relax_complex
  7b. confidence -- the same dock of the 4 systems with the committed
                  confidence weights and --enable_confidence
                  --confidence_ranking: every pose's metrics finite
@@ -131,21 +149,25 @@ exits non-zero (no phase is caught):
                  with one confidence entry per pose
  12. summary  -- the per-kernel JSON line (six rows; launches from the
                  main dock for rows 1-4 and from the train run for rows
-                 5-6, and for rows 1-4 those of both screens; per row also
+                 5-6, and for rows 1-4 those of both screens and of the
+                 dock_many and batched redocks; per row also
                  its launches in the confidence dock, in its head alone
                  and per mini-rollout train step, and rows 3-4 their times
                  at the head's sites), the whole run's wall,
                  the card line, and last the {"ok": true, ...} line
 
-It imports nothing of JAX, starts no process other than nvcc and
-nvidia-smi (the train run's prefetch is a thread, stopped when it ends),
-and exits non-zero without a result when CUDA is absent or the port's
-package is not beside it.
+It imports nothing of JAX, starts no process other than nvcc, nvidia-smi
+and the featurizer worker of the redocking CLI's multi-system runs
+(stopped when each run ends; the train run's prefetch is a thread,
+stopped when it ends), and exits non-zero without a result when CUDA is
+absent or the port's package is not beside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import io
 import json
 import math
 import os
@@ -266,6 +288,11 @@ def kernel_cases():
 # row 1 at the batched screen's atom-DiT site: 4 systems of 20 samples,
 # rows sample-major, one [4, S, S] bias per system
 SCREEN_SITE = ("flash_sdpa_folded_v3", dict(layout="folded", B=80, H=4, S=1920, D=32, systems=4))
+# row 3 at the batched redock's atom-DiT site (`--dock_batch_size 4` at
+# crop 128/1024): the 4 demo systems re-padded to the chunk's largest
+# bucket, 896 atoms (phase_redock_many checks that the run padded to it),
+# 20 samples each, one [4, S, S] bias per system
+REDOCK_SITE = ("flash_sdpa_folded", dict(layout="folded", B=80, H=4, S=896, D=32, systems=4))
 
 
 def heads_view(x, layout, H):
@@ -420,11 +447,11 @@ def phase_kernels(torch):
             r = run_kernel_case(torch, name, spec, dtype)
             r["replaces"] = replaces
             rows[(name, r["dtype"])] = r
-    name, spec = SCREEN_SITE
-    for dtype in (torch.float32, torch.bfloat16):
-        log(f"  {name} at the batched screen's site:")
-        r = run_kernel_case(torch, name, spec, dtype, seed=spec["B"] + spec["S"])
-        rows[(name, "screen", r["dtype"])] = r
+    for tag, (name, spec) in (("screen", SCREEN_SITE), ("redock", REDOCK_SITE)):
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"  {name} at the batched {tag}'s site:")
+            r = run_kernel_case(torch, name, spec, dtype, seed=spec["B"] + spec["S"])
+            rows[(name, tag, r["dtype"])] = r
     return rows
 
 
@@ -856,14 +883,12 @@ def check_tc_routes(phase, routes):
 # ------------------------------------------------------------------- docks
 
 
-def dock(inputs, out, crop, atom_crop, params=PARAMS, extra=()):
-    """Guided redocking through the port's CLI entry point, with the
-    accuracy gate's settings (OVERFIT_GATE.json: 40 steps, 2 rounds of 20
-    poses, 64 conformers, pocket cutoff 6 A, fp32)."""
-    from physdock_tpu_torch.cli import redocking
-
+def dock_args(inputs, out, crop, atom_crop, params=PARAMS, extra=()):
+    """The redocking CLI's arguments with the accuracy gate's settings
+    (OVERFIT_GATE.json: 40 steps, 2 rounds of 20 poses, 64 conformers,
+    pocket cutoff 6 A, fp32)."""
     feats = os.path.join(REPO, "demo", "redocking", "features")
-    return redocking.main([
+    return [
         *inputs, "-o", out, *extra,
         "--params", params,
         "--model_name", "toy", "--crop_size", str(crop), "--atom_crop_size", str(atom_crop),
@@ -873,19 +898,202 @@ def dock(inputs, out, crop, atom_crop, params=PARAMS, extra=()):
         "--max_samples", "40", "--num_confs", "64", "--pocket_cutoff", "6.0",
         "--use_pocket", "--use_key_res", "--enable_physics_correction",
         "--enable_ranking", "--device", "cuda",
-    ])
+    ]
 
 
-def phase_accuracy(work):
-    results = dock(["-f", SYSTEMS], os.path.join(work, "accuracy"), 128, 1024)
+def dock(inputs, out, crop, atom_crop, params=PARAMS, extra=()):
+    """Guided redocking through the port's CLI entry point (`dock_args`)."""
+    from physdock_tpu_torch.cli import redocking
+
+    return redocking.main(dock_args(inputs, out, crop, atom_crop, params, extra))
+
+
+class Timed:
+    """Wraps `owner.attr` with a timer while installed (a context
+    manager): the seconds of each call, the card synchronized around it."""
+
+    def __init__(self, torch, owner, attr):
+        self.torch, self.owner, self.attr, self.calls = torch, owner, attr, []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.owner, self.attr)
+
+        def timed(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.time()
+            out = orig(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.append(time.time() - t0)
+            return out
+
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+
+class Tee:
+    """Keeps a copy of what is printed to stdout while installed."""
+
+    def __enter__(self):
+        self.out, self.buf = sys.stdout, io.StringIO()
+        sys.stdout = self
+        return self
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+
+def check_bust_reports(tag, out, results):
+    """Every system directory holds bust_report.json: one entry per written
+    pose (five), each with its pose_valid verdict. Returns the top-1's
+    verdicts."""
+    top1 = {}
+    for r in results:
+        path = os.path.join(out, r["system_id"], "bust_report.json")
+        if not os.path.exists(path):
+            fail(f"{tag}: {path} missing")
+        with open(path) as f:
+            report = json.load(f)
+        if len(report) != 5 or any("pose_valid" not in e for e in report) or [
+                e["rank"] for e in report] != list(range(5)):
+            fail(f"{tag}: {path}: not five ranked entries with pose_valid: {report}")
+        top1[r["system_id"]] = report[0]["pose_valid"]
+    return top1
+
+
+def phase_accuracy(torch, work):
+    """The 4 systems through the CLI, which takes more than one system
+    through `dock_many`: the first featurized in process while the
+    featurizer worker starts, the other three by the worker. Returns
+    (top-1 RMSDs, results, the dock_many call's seconds, check_pose's
+    seconds per system)."""
+    from physdock_tpu_torch.infer import pipeline
+
+    out = os.path.join(work, "accuracy")
+    with Tee() as tee, Timed(torch, pipeline.DockingPipeline, "dock_many") as many, \
+            Timed(torch, pipeline, "check_pose") as checks:
+        results = dock(["-f", SYSTEMS], out, 128, 1024)
+    if "[dock_many failed" in tee.buf.getvalue() or len(many.calls) != 1:
+        fail(f"accuracy dock did not go through dock_many ({len(many.calls)} calls)")
     if len(results) != 4:
         fail(f"accuracy dock returned {len(results)} results, expected 4")
     tops = {}
-    for r in results:
+    for i, r in enumerate(results):
         if "error" in r or not r.get("top5_rmsd"):
             fail(f"accuracy dock: {r.get('system_id')}: {r.get('error', 'no rmsd')}")
+        detail = r["timings"].get("load_detail") or {}
+        if (i == 0) != (not detail) or detail and not {
+                "wait_s", "read_s", "mb", "worker_s"} <= set(detail):
+            fail(f"accuracy dock: {r['system_id']}: system {i} should be featurized "
+                 f"{'in process' if i == 0 else 'by the worker (its receive timings)'}: "
+                 f"{r['timings']}")
         tops[r["system_id"]] = r["top5_rmsd"][0]
-    return tops
+    valid = check_bust_reports("accuracy dock", out, results)
+    log(f"[accuracy] dock_many {many.calls[0]:.2f} s; per system load_s "
+        f"{[r['timings']['load_s'] for r in results]}, worker receive (systems 2-4) "
+        f"{json.dumps([r['timings']['load_detail'] for r in results[1:]])}; top-1 pose_valid "
+        f"{json.dumps(valid)}; check_pose {sum(checks.calls) / len(results):.4f} s per system "
+        f"({len(checks.calls)} poses)")
+    return tops, results, many.calls[0], sum(checks.calls) / len(results)
+
+
+def phase_redock_many(torch, work, card, acc_results, many_s, check_s):
+    """The accuracy dock's 4 systems again: one after the other with
+    `DockingPipeline.dock`, featurized in process (each held to its
+    dock_many result; the same warm process, so the two walls compare the
+    worker's prefetch and offload against none), then
+    batched by 4 through the CLI (counts reset before, read after), then
+    one system with side-chain relaxation. Returns the batched run's
+    launches."""
+    import argparse
+
+    import numpy as np
+
+    from physdock_tpu_torch.cli.common import add_common_flags, build_pipeline
+    from physdock_tpu_torch.infer import pipeline
+    from physdock_tpu_torch.ops import _flash_lib
+
+    parser = argparse.ArgumentParser()
+    add_common_flags(parser)
+    out = os.path.join(work, "sequential")
+    pipe = build_pipeline(parser.parse_args(dock_args([], out, 128, 1024)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seq = [pipe.dock(path, os.path.join(out, os.path.basename(path)[: -len(".pkl.gz")]))
+               for path in sorted(glob.glob(os.path.join(SYSTEMS, "*.pkl.gz")))]
+        torch.cuda.synchronize()
+        seq_s = time.time() - t0
+    finally:
+        pipe.close()
+    many = {r["system_id"]: r for r in acc_results}
+    for r in seq:
+        m = many[r["system_id"]]
+        err = float(np.max(np.abs(np.subtract(r["all_rmsd"], m["all_rmsd"]))))
+        if r["rank_order"] != m["rank_order"] or not err <= 1e-4:
+            fail(f"redock_many: {r['system_id']}: sequential dock differs from dock_many: rank "
+                 f"order {r['rank_order']} / {m['rank_order']}, max RMSD difference {err} A")
+    log(f"[redock_many] 4 systems one after the other (DockingPipeline.dock, featurized in "
+        f"process) {seq_s:.2f} s, through dock_many with the worker {many_s:.2f} s "
+        f"({seq_s / many_s:.3f}x); every system's rank order and pose RMSDs equal within "
+        f"1e-4 A; load_s sequential {[r['timings']['load_s'] for r in seq]}, dock_many "
+        f"{[r['timings']['load_s'] for r in acc_results]} ({card})")
+
+    out = os.path.join(work, "batched")
+    torch.cuda.synchronize()
+    _flash_lib.reset_launches()
+    with Timed(torch, pipeline.DockingPipeline, "dock_many") as timer:
+        batched = dock(["-f", SYSTEMS], out, 128, 1024, extra=["--dock_batch_size", "4"])
+    torch.cuda.synchronize()
+    launches = dict(_flash_lib.LAUNCHES)
+    if len(batched) != 4 or any("error" in r or not r.get("top5_rmsd") for r in batched):
+        fail(f"batched redock: {batched}")
+    tops = {r["system_id"]: r["top5_rmsd"][0] for r in batched}
+    groups = {r["system_id"]: r.get("vs_batch_size", 1) for r in batched}
+    rounds = sorted({r["timings"]["rounds_s"] for r in batched})  # one per group
+    padded = {r["n_atoms_padded"] for r in batched if r.get("vs_batch_size", 1) == 4}
+    if padded != {REDOCK_SITE[1]["S"]}:
+        fail(f"batched redock padded its group to {padded} atoms, not REDOCK_SITE's "
+             f"{REDOCK_SITE[1]['S']}: the kernel check ran at another shape")
+    valid = check_bust_reports("batched redock", out, batched)
+    log(f"[redock_many] --dock_batch_size 4: {timer.calls[0]:.2f} s in dock_many "
+        f"({seq_s / timer.calls[0]:.3f}x the sequential wall); group size per system "
+        f"{json.dumps(groups)}; rounds_s per group {rounds} (summed "
+        f"{sum(rounds):.3f}; the dock_many run's summed "
+        f"{sum(r['timings']['rounds_s'] for r in acc_results):.3f}); top-1 RMSD (A) "
+        f"{json.dumps(tops)}; top-1 pose_valid {json.dumps(valid)} ({card})")
+    log(f"[redock_many]   launches: {json.dumps(launches)}; bias expansions "
+        f"{json.dumps(_flash_lib.BIAS_EXPANSIONS)}")
+    bad = {k: v for k, v in tops.items() if not (v < 2.0)}
+    if bad:
+        fail(f"batched redock: top-1 RMSD >= 2 A: {bad}")
+    missing = [k for k, _, _ in kernel_cases() if k != "flash_sdpa_folded_v3" and launches[k] <= 0]
+    if missing:  # the atom DiT takes row 3 below 1024 atoms
+        fail(f"batched redock never launched {missing}")
+
+    out = os.path.join(work, "relaxed")
+    with Timed(torch, pipeline, "relax_complex") as relax:
+        (r,) = dock(["-i", os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")], out, 128, 1024,
+                    extra=["--enable_sidechain_relaxation"])
+    if "error" in r or not r.get("top5_rmsd") or not r["top5_rmsd"][0] < 2.0:
+        fail(f"relaxed redock: {r}")
+    valid = check_bust_reports("relaxed redock", out, [r])
+    log(f"[redock_many] --enable_sidechain_relaxation, {r['system_id']}: top-1 "
+        f"{r['top5_rmsd'][0]:.4f} A (the dock_many run's {many[r['system_id']]['top5_rmsd'][0]:.4f}); "
+        f"relax_complex {sum(relax.calls):.3f} s over {len(relax.calls)} poses "
+        f"({sum(relax.calls) / len(relax.calls):.4f} s per pose), check_pose {check_s:.4f} s per "
+        f"system; rounds_s {r['timings']['rounds_s']}; top-1 pose_valid {json.dumps(valid)} "
+        f"({card})")
+    return launches
 
 
 class HeadTimer:
@@ -1060,7 +1268,6 @@ def phase_lockstep(torch):
     import numpy as np
 
     from physdock_tpu_torch.cli import common
-    from physdock_tpu_torch.model.compact import compact_batch_np
     from physdock_tpu_torch.model.diffusion import (
         sample_diffusion,
         sample_diffusion_batched,
@@ -1077,15 +1284,18 @@ def phase_lockstep(torch):
     pipe = common.build_pipeline(args)
     s = pipe.s
     loaded = {}
-    for smi in load_txt(os.path.join(SCREEN, "demo_db.txt")):
-        feats, meta = pipe.featurizer.load(args.i, remove_ligand=True, smi=smi, num_msa_rounds=1)
-        sig = tuple(sorted((k, np.shape(v)) for k, v in feats.items()))
-        loaded.setdefault(sig, []).append((feats, meta))
-        if len(loaded[sig]) == 2:
-            items = loaded[sig]
-            break
-    else:
-        fail("lockstep: no two demo ligands share a shape group")
+    try:  # features, compact, and conformer banks through the pipeline's loader
+        for smi in load_txt(os.path.join(SCREEN, "demo_db.txt")):
+            feats, meta = pipe._load(args.i, remove_ligand=True, smi=smi, num_msa_rounds=1)
+            sig = tuple(sorted((k, np.shape(v)) for k, v in feats.items()))
+            loaded.setdefault(sig, []).append((feats, meta))
+            if len(loaded[sig]) == 2:
+                items = loaded[sig]
+                break
+        else:
+            fail("lockstep: no two demo ligands share a shape group")
+    finally:
+        pipe.close()
     l_max = max(len(m["ligand_atom_idx"]) for _, m in items)
     guides = []
     for feats, meta in items:
@@ -1097,7 +1307,7 @@ def phase_lockstep(torch):
             conf_dists=torch.as_tensor(np.linalg.norm(pos[:, :, None] - pos[:, None], axis=-1),
                                        device="cuda"),
             conf_mask=torch.ones(s.max_samples, device="cuda")))
-    batches = [pipe._to_device(compact_batch_np(f)) for f, _ in items]
+    batches = [pipe._to_device(f) for f, _ in items]
     stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
     n_atoms = stacked["ref_pos"].shape[-2]
     rng = np.random.default_rng(0)
@@ -1384,7 +1594,8 @@ def main():
 
     t0 = time.time()
     rows = phase_kernels(torch)
-    log(f"[kernels] 4 wrappers x 2 dtypes match their plain versions ({time.time() - t0:.2f} s)")
+    log(f"[kernels] 4 wrappers x 2 dtypes, and the batched screen's and redock's sites, match "
+        f"their plain versions ({time.time() - t0:.2f} s)")
     t0 = time.time()
     train_rows = phase_train_kernels(torch)
     log(f"[train_kernels] rows 2 and 4 at {len(TRAIN_FWD_SITES)} training sites and rows 5-6 "
@@ -1403,7 +1614,7 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
     _flash_lib.reset_launches()
-    tops = phase_accuracy(work)
+    tops, acc_results, many_s, check_s = phase_accuracy(torch, work)
     acc_launches = dict(_flash_lib.LAUNCHES)
     t_acc = time.time() - t0
     log(f"[accuracy] top-ranked RMSD (A): {json.dumps(tops)}")
@@ -1411,6 +1622,14 @@ def main():
     bad = {k: v for k, v in tops.items() if not (v < 2.0)}
     if bad:
         fail(f"accuracy dock: top-ranked RMSD >= 2 A: {bad}")
+    missing = [k for k, _, _ in kernel_cases() if k != "flash_sdpa_folded_v3"
+               and acc_launches[k] <= 0]
+    if missing:  # the atom DiT takes row 3 below 1024 atoms
+        fail(f"accuracy dock (dock_many) never launched {missing}")
+
+    t0 = time.time()
+    batched_launches = phase_redock_many(torch, work, card, acc_results, many_s, check_s)
+    log(f"[redock_many] done ({time.time() - t0:.2f} s)")
 
     t0 = time.time()
     conf_tops, conf_launches, head_launches = phase_confidence(torch, work)
@@ -1478,6 +1697,8 @@ def main():
                                     ("library_ms", pre + "library_ms"))}
                 for n, site, _ in TRAIN_FWD_SITES if n == name},
             "screen_launches": {f"vs{bs}": n[name] for bs, n in screen_launches.items()},
+            "redock_many_launches": {"dock_many": acc_launches[name],
+                                     "dock_batch_size_4": batched_launches[name]},
             "confidence_dock_launches": conf_launches[name],
             "confidence_head_launches": head_launches[name],
             "mini_rollout_launches_per_step": mini_per_step[name],
@@ -1490,14 +1711,15 @@ def main():
                                     ("library_ms", pre + "library_ms"))}
                 for n, site, _ in CONF_SITES if n == name},
         })
-        if name == SCREEN_SITE[0]:
-            kernels[-1]["screen_site"] = {
-                k: rows[(name, "screen", dt)][f]
-                for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
-                for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
-                             ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
-                             ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
-                             ("library_ms", pre + "library_ms"), ("lead", pre + "lead"))}
+        for tag, (site_name, _) in (("screen", SCREEN_SITE), ("redock", REDOCK_SITE)):
+            if name == site_name:
+                kernels[-1][f"{tag}_site"] = {
+                    k: rows[(name, tag, dt)][f]
+                    for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
+                    for f, k in (("max_abs_err", pre + "max_abs_err"), ("ms", pre + "ms"),
+                                 ("before_ms", pre + "before_ms"), ("plain_ms", pre + "plain_ms"),
+                                 ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
+                                 ("library_ms", pre + "library_ms"), ("lead", pre + "lead"))}
     for name, replaces, source in TRAIN_KERNELS:
         r = train_rows[(name, "atom_dit", "float32")]
         rb = train_rows[(name, "atom_dit", "bfloat16")]

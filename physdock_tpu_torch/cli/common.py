@@ -1,6 +1,10 @@
 """Shared CLI plumbing (port of `physdock_tpu/cli/common.py`): the argparse
 surface of the reference redocking CLI, plus `--device`; model and
-parameter loading through the weight bridge."""
+parameter loading through the weight bridge.  On CUDA the pipeline's
+featurizer is a `data/feat_worker.FeaturizerWorker`, as the JAX CLI keys
+it on the platform: `dock_many` prefetches its later systems in the
+worker subprocess, which starts only then; every load the caller waits
+for runs in process.  With `--device cpu` the featurizer is in process."""
 
 from __future__ import annotations
 
@@ -42,7 +46,15 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--key_res_random_mask_ratio", type=float, default=0.5)
     p.add_argument("--rho", type=float, default=1000.0)
     p.add_argument("--enable_ranking", action="store_true")
+    p.add_argument("--enable_sidechain_relaxation", action="store_true",
+                   help="relax every pose in the receptor's restraint field before ranking "
+                        "(infer/relax.py)")
+    p.add_argument("--align_mode", default="pocket_ca",
+                   help="accepted and stored, as in the JAX CLI; poses align on the pocket CAs")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--feat_cache_dir", default=None,
+                   help="disk-cache featurized systems here (keyed by system content hash + "
+                        "config; on CUDA, where the featurizer worker's code loads every system)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ebable_x_gt_ligand_as_ref_pos", action="store_true",
                    help="GT-conformer ablation (reference redocking.py:79-82)")
@@ -60,8 +72,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 
 
 def build_pipeline(args):
+    """The CLI's DockingPipeline."""
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.data.ccd import CCDLibrary
+    from physdock_tpu_torch.data.feat_worker import FeaturizerWorker
     from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
     from physdock_tpu_torch.infer.pipeline import (
         DockingPipeline,
@@ -84,9 +98,7 @@ def build_pipeline(args):
         smiles_protonate_ph=args.smiles_protonate_ph,
         smiles_canonical_tautomer=args.smiles_canonical_tautomer,
     )
-    # always the in-process featurizer: no worker subprocess, no pipe
-    featurizer = SystemFeaturizer(
-        cfg.data,
+    fz_kwargs = dict(
         ccd=CCDLibrary(args.ccd_blob) if args.ccd_blob else None,
         msa_features_dir=args.msa_features_dir,
         uniprot_msa_features_dir=args.uniprot_msa_features_dir,
@@ -95,7 +107,12 @@ def build_pipeline(args):
         use_x_gt_ligand_as_ref_pos=args.ebable_x_gt_ligand_as_ref_pos,
     )
     want_confidence = args.enable_confidence or args.confidence_ranking
-    model = load_model(args.params, cfg, seed=args.seed, with_confidence=want_confidence)
+    if device.type == "cuda":
+        # the card's process docks while the worker featurizes the next
+        # system and post-processes the last one
+        featurizer = FeaturizerWorker(cfg.data, cache_dir=args.feat_cache_dir, **fz_kwargs)
+    else:
+        featurizer = SystemFeaturizer(cfg.data, **fz_kwargs)
     settings = SamplerSettings(
         max_samples=args.max_samples,
         num_samples_per_round=args.num_samples_per_round,
@@ -107,10 +124,13 @@ def build_pipeline(args):
         num_confs=args.num_confs,
         rho=args.rho,
         enable_ranking=args.enable_ranking,
+        enable_sidechain_relaxation=args.enable_sidechain_relaxation,
+        align_mode=args.align_mode,
         seed=args.seed,
         enable_confidence=want_confidence,
         confidence_ranking=args.confidence_ranking,
     )
+    model = load_model(args.params, cfg, seed=args.seed, with_confidence=want_confidence)
     return DockingPipeline(cfg, model, featurizer, settings, device=device)
 
 

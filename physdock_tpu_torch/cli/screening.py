@@ -45,8 +45,11 @@ def main(argv=None):
         print(f"[screen] shard {args.shard_id}/{args.num_shards}: {len(smiles)} ligands",
               flush=True)
     pipe = build_pipeline(args)
-    results = pipe.screen(args.input_pkl, smiles, args.output_dir,
-                          batch_size=args.vs_batch_size)
+    try:
+        results = pipe.screen(args.input_pkl, smiles, args.output_dir,
+                              batch_size=args.vs_batch_size)
+    finally:
+        pipe.close()
     name = ("screening_results.json" if args.num_shards == 1
             else f"screening_results.shard{args.shard_id:03d}.json")
     dump_json(results, os.path.join(args.output_dir, name))

@@ -2,14 +2,15 @@
 
 The presets, `ModelConfig`, `DataConfig` and `LossConfig` are the JAX
 package's (`physdock_tpu/config.py`) unchanged, so a checkpoint trained
-there lines up here; `DTypePolicy` names torch dtypes.
+there lines up here; `DTypePolicy` names torch dtypes.  The module imports
+torch only when a `DTypePolicy` is made, so the host-only featurizer
+worker (`data/feat_worker.py`), which unpickles a `DataConfig`, starts
+without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-import torch
 
 # Block-count presets: (atom, evoformer, pairformer, dit, heads)
 # (reference: PhysDock/configs.py:65-96)
@@ -28,11 +29,20 @@ class DTypePolicy:
     run in `compute_dtype`; normalizations, softmax statistics and SVD
     always run in fp32."""
 
-    param_dtype: torch.dtype = torch.float32
-    compute_dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = None  # None: torch.float32
+    compute_dtype: torch.dtype = None
+
+    def __post_init__(self):
+        import torch
+
+        for name in ("param_dtype", "compute_dtype"):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, torch.float32)
 
     @classmethod
     def bf16(cls) -> "DTypePolicy":
+        import torch
+
         return cls(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
 
 

@@ -43,7 +43,7 @@ from physdock_tpu_torch.data.ccd import (
 )
 from physdock_tpu_torch.data.constants import restypes as rc
 from physdock_tpu_torch.data.constants.periodic_table import element_symbol
-from physdock_tpu_torch.utils.geometry import random_rigid_transform_np
+from physdock_tpu_torch.utils.geometry_np import random_rigid_transform_np
 from physdock_tpu_torch.utils.io import load_pkl, protein_msa_key
 
 PLIP_CHANNELS = [

@@ -1,22 +1,29 @@
 """Guided redocking and virtual screening (port of
-`physdock_tpu/infer/pipeline.py`: `DockingPipeline.dock`, `_dock_loaded`,
-`_build_guidance`, `_postprocess`, `screen`, `_dock_ligand_batch`,
+`physdock_tpu/infer/pipeline.py`: `DockingPipeline.dock`, `dock_many`,
+`_dock_many_batched`, `_load`, `_dock_loaded`, `_build_guidance`,
+`_post_args`, `_postprocess`, `screen`, `_dock_ligand_batch`,
 `_run_ligand_group`, `_run_group_batched`).
 
-Host-side orchestration around the model on one device: featurize in
-process, run the round loop (trunk -> EDM sampler with physics guidance ->
-chirality accept/reject, `infer/rounds.RoundProtocol`), then align to the
-GT pocket frame, rank and write PDB/SDF.  The round loop calls the trunk
-and the sampler directly.  Screening docks a SMILES list into one
-receptor, one ligand at a time or in groups of same-shaped ligand-systems
-that share one sampler pass (`model/diffusion.sample_diffusion_batched`);
-the trunk runs once per system and round.  With `enable_confidence` the
-confidence head scores every pose of a dock with the last round's (s, z),
-one pose at a time (`_confidence_scores`), into `confidence.json`, and
+Host-side orchestration around the model on one device: featurize (in
+process, or in the `data/feat_worker.FeaturizerWorker` subprocess), run
+the round loop (trunk -> EDM sampler with physics guidance -> chirality
+accept/reject, `infer/rounds.RoundProtocol`), then align to the GT pocket
+frame, optionally relax (`infer/relax.relax_complex`), rank, write
+PDB/SDF and the pose-validity report `bust_report.json`
+(`infer/relax.check_pose` on the written top 5).  The round loop calls
+the trunk and the sampler directly.  `dock_many` docks a list of systems:
+with the worker, the first is featurized here while the worker starts,
+then system k+1 is featurized and system k-1 post-processed in the
+worker while system k's rounds run; with `batch_size` > 1 systems
+of one MSA depth are re-padded to a common bucket and share one sampler
+pass.  Screening docks a SMILES list into one receptor, one ligand at a
+time or in groups of same-shaped ligand-systems that share one sampler
+pass (`model/diffusion.sample_diffusion_batched`); the trunk runs once
+per system and round.  With `enable_confidence` the confidence head
+scores every pose of a dock with the last round's (s, z), one pose at a
+time (`_confidence_scores`), into `confidence.json`, and
 `confidence_ranking` ranks the poses by its `ranking_confidence`; the
-batched screen scores no confidence, as in the JAX package.  Not ported
-here: `dock_many`, the featurizer worker, side-chain relaxation and the
-pose-check report.
+batched paths score no confidence, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,12 +40,14 @@ import torch
 
 from physdock_tpu_torch.config import PhysDockConfig
 from physdock_tpu_torch.data.embed import generate_conformers
+from physdock_tpu_torch.data.feat_worker import FeaturizerWorker, featurize
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
 from physdock_tpu_torch.infer import metrics as metrics_lib
 from physdock_tpu_torch.infer import ranking as ranking_lib
 from physdock_tpu_torch.infer import writers
+from physdock_tpu_torch.infer.relax import check_pose, relax_complex
 from physdock_tpu_torch.infer.rounds import RoundProtocol, pairwise
-from physdock_tpu_torch.model.compact import compact_batch_np, compact_msa_np
+from physdock_tpu_torch.model.compact import pad_compact_msa_np, pad_compact_np
 from physdock_tpu_torch.model.diffusion import (
     PhysicsGuidance,
     gather_ligand,
@@ -50,6 +59,23 @@ from physdock_tpu_torch.model.diffusion import (
 from physdock_tpu_torch.model.forcefield import build_ligand_ff, chirality_correct
 from physdock_tpu_torch.model.physdock import PhysDock, prepare_batch
 from physdock_tpu_torch.utils.io import dump_json, md5_string
+
+
+def _json_safe(d: Dict) -> Dict:
+    """numpy scalars/arrays -> plain python for json dumps."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, (np.bool_, bool)):
+            out[k] = bool(v)
+        elif isinstance(v, (np.integer, int)):
+            out[k] = int(v)
+        elif isinstance(v, (np.floating, float)):
+            out[k] = round(float(v), 4)
+        elif isinstance(v, np.ndarray):
+            out[k] = v.tolist()
+        else:
+            out[k] = v
+    return out
 
 
 def _failed(smi: str, e: Exception) -> Dict:
@@ -77,6 +103,8 @@ class SamplerSettings:
     noise_scale_lambda: float = 1.003
     step_scale_eta: float = 1.5
     enable_ranking: bool = True
+    enable_sidechain_relaxation: bool = False
+    align_mode: str = "pocket_ca"  # stored, not read, as in the JAX package
     seed: int = 0
     # the confidence head at inference (the model must have it): per-pose
     # pLDDT/PAE/pTM/ipTM metrics, and optionally the poses ranked by
@@ -112,10 +140,66 @@ class DockingPipeline:
         self.s = settings or SamplerSettings()
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.featurizer = featurizer
+        self.featurizer = featurizer  # SystemFeaturizer or FeaturizerWorker
+
+    def close(self) -> None:
+        """Stop the featurizer worker, if the pipeline has one."""
+        if isinstance(self.featurizer, FeaturizerWorker):
+            self.featurizer.stop()
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return arrays_to_device(arrays, self.device)
+
+    def _load_kwargs(self, remove_ligand, smi, ligand_sdf) -> Dict:
+        return dict(remove_ligand=remove_ligand, smi=smi, ligand_sdf=ligand_sdf,
+                    num_msa_rounds=max(1, self.s.max_rounds))
+
+    def _worker_kwargs(self) -> Dict:
+        """What the worker computes besides the features: the conformer
+        bank when physics correction wants it, and the compact form."""
+        want = self.s.enable_physics_correction
+        return dict(num_confs=self.s.num_confs if want else None, conf_seed=self.s.seed,
+                    compact=True)
+
+    @staticmethod
+    def _with_bank(payload):
+        """(feats, meta) of a worker-code load, the conformer bank in meta."""
+        feats, meta, confs = payload
+        if confs is not None:
+            meta["_conf_bank"] = confs
+        return feats, meta
+
+    def _load(self, system, **kw):
+        """One system's (feats, meta) in the compact transport form, the one
+        form the pipeline docks, featurized in this process: a load the
+        caller waits for gains nothing from the worker.  With a
+        FeaturizerWorker it runs the worker's code here (`load_here`: its
+        disk cache, the conformer bank in meta)."""
+        if isinstance(self.featurizer, FeaturizerWorker):
+            return self._with_bank(
+                self.featurizer.load_here(system, **self._worker_kwargs(), **kw))
+        return self._with_bank(featurize(self.featurizer, system, kw, compact=True))
+
+    def _loaded_in_order(self, systems, kw):
+        """Yields each system's (feats, meta), compact, in order.  With the
+        worker, the first system is featurized here while the worker
+        process starts, and every later one goes to the worker up front: it
+        serves them in order and computes system k+1 while the caller docks
+        system k (the ~64 KB pipe bounds how far ahead it runs).  A worker
+        result carries the receive timings (header wait, payload read)
+        beside the worker's own seconds and its cache verdict."""
+        rest = systems[1:] if isinstance(self.featurizer, FeaturizerWorker) else []
+        for sysp in rest:
+            self.featurizer.submit(sysp, **self._worker_kwargs(), **kw)
+        for i, sysp in enumerate(systems):
+            if i == 0 or not rest:
+                yield self._load(sysp, **kw)
+                continue
+            feats, meta = self._with_bank(self.featurizer.result())
+            meta["_recv_detail"] = dict(self.featurizer.last_recv,
+                                        worker_s=meta.get("_worker_time_s"),
+                                        cache=meta.get("_feat_cache", "miss"))
+            yield feats, meta
 
     def _build_guidance(self, batch, meta, pad_atoms: Optional[int] = None):
         """Returns (PhysicsGuidance template, original conformer bank); the
@@ -127,10 +211,12 @@ class DockingPipeline:
         lig_idx = np.asarray(meta["ligand_atom_idx"])
         if mol is None or len(lig_idx) == 0 or mol.num_atoms != len(lig_idx):
             return None, None
-        confs = generate_conformers(
-            mol, num_confs=self.s.num_confs, base_coords=mol.coords,
-            rng=np.random.default_rng(self.s.seed),
-        )
+        confs = meta.get("_conf_bank")
+        if confs is None:
+            confs = generate_conformers(
+                mol, num_confs=self.s.num_confs, base_coords=mol.coords,
+                rng=np.random.default_rng(self.s.seed),
+            )
         ff = build_ligand_ff(
             mol.atomic_numbers.tolist(),
             [(i, j) for i, j, _ in mol.bonds],
@@ -169,21 +255,113 @@ class DockingPipeline:
         """Dock one system. Returns a result dict with poses' ranking, RMSD
         vs GT and timings."""
         t_start = time.time()
-        loaded = self.featurizer.load(
-            system, remove_ligand=remove_ligand, smi=smi, ligand_sdf=ligand_sdf,
-            num_msa_rounds=max(1, self.s.max_rounds),
-        )
+        loaded = self._load(system, **self._load_kwargs(remove_ligand, smi, ligand_sdf))
         return self._dock_loaded(loaded, output_dir, remove_ligand=remove_ligand, smi=smi,
                                  write_outputs=write_outputs, t_start=t_start)
 
+    def dock_many(self, systems, output_root: str, remove_ligand: bool = False,
+                  smi: Optional[str] = None, ligand_sdf: Optional[str] = None,
+                  write_outputs: bool = True, batch_size: int = 1,
+                  results: Optional[List[Dict]] = None) -> List[Dict]:
+        """Dock a list of systems, each into `output_root/<system_id>`.
+        With the worker, the first system is featurized here while the
+        worker starts, system k+1 (k >= 1) in the worker while system k's
+        rounds run, and a docked system's post-processing (align/rank/
+        score) runs there too, overlapping the next system's rounds (not
+        with relaxation or confidence, which stay in this process); the
+        poses equal sequential `dock`'s.  batch_size > 1 stacks systems of
+        one MSA depth, re-padded to the chunk's largest bucket, into one
+        sampler pass per round (`_dock_many_batched`).
+        `results`, when given, receives each system's result as it
+        finishes, so a caller keeps the finished systems when a later one
+        raises."""
+        results = [] if results is None else results
+        systems = list(systems)
+        kw = self._load_kwargs(remove_ligand, smi, ligand_sdf)
+        if batch_size > 1:
+            return self._dock_many_batched(systems, output_root, kw, remove_ligand=remove_ligand,
+                                           smi=smi, write_outputs=write_outputs,
+                                           batch_size=batch_size, results=results)
+        offload = isinstance(self.featurizer, FeaturizerWorker) and len(systems) > 1 and not (
+            self.s.enable_sidechain_relaxation or self.s.enable_confidence)
+        pending = []
+        loads = self._loaded_in_order(systems, kw)
+        for _ in systems:
+            t_start = time.time()
+            feats, meta = next(loads)
+            out_dir = os.path.join(output_root, str(meta["system_id"]))
+            ctx = self._dock_loaded((feats, meta), out_dir, remove_ligand=remove_ligand, smi=smi,
+                                    write_outputs=write_outputs, t_start=t_start,
+                                    defer_post=offload)
+            if offload:
+                self.featurizer.submit_post(
+                    ctx["poses"], self._post_args(ctx["feats"], ctx["meta"], remove_ligand, smi))
+                pending.append((ctx, out_dir))
+            else:
+                results.append(ctx)
+        # FIFO: every load response has drained before the first post one
+        for ctx, out_dir in pending:
+            post = self.featurizer.result()
+            res = self._postprocess(ctx["feats"], ctx["meta"], ctx["poses"], out_dir,
+                                    remove_ligand=remove_ligand, smi=smi,
+                                    rounds_run=ctx["rounds_run"], t_feat=ctx["t_feat"],
+                                    t_start=ctx["t_start"], write_outputs=write_outputs,
+                                    post=post)
+            res["timings"] = ctx["timings"]
+            results.append(res)
+        return results
+
+    def _dock_many_batched(self, systems, output_root: str, kw: Dict, *, remove_ligand: bool,
+                           smi: Optional[str], write_outputs: bool, batch_size: int,
+                           results: List[Dict]) -> List[Dict]:
+        """Batched dock_many: load everything (in this process: nothing
+        docks meanwhile for the worker to overlap), group by MSA depth (rows
+        cannot be padded without a row mask), re-pad each chunk of <=
+        batch_size to its largest token and atom count and dock it in one
+        sampler pass per round (`_run_group_batched`); a chunk whose
+        guidance cannot be built docks one system at a time."""
+        t_start = time.time()
+        groups: Dict[int, list] = {}
+        for sysp in systems:
+            feats, meta = self._load(sysp, **kw)
+            groups.setdefault(np.shape(feats["msa_tok_c"])[0], []).append((feats, meta))
+        ablate = self.featurizer.use_x_gt_ligand_as_ref_pos
+        for group in groups.values():
+            for i in range(0, len(group), batch_size):
+                chunk = group[i: i + batch_size]
+                if len(chunk) > 1:
+                    n_tok = max(len(f["s_mask"]) for f, _ in chunk)
+                    n_atom = max(len(f["a_mask"]) for f, _ in chunk)
+                    for f, m in chunk:
+                        if m.get("batch_msa_feat_c") is not None:
+                            m["batch_msa_feat_c"] = [pad_compact_msa_np(x, n_tok)
+                                                     for x in m["batch_msa_feat_c"]]
+                    chunk = [(pad_compact_np(f, n_tok, n_atom), m) for f, m in chunk]
+                out_dirs = [os.path.join(output_root, str(m["system_id"])) for _, m in chunk]
+                gt_ligs = None
+                if ablate:
+                    gt_ligs = [np.asarray(f["x_gt"])[np.asarray(m["ligand_atom_idx"])]
+                               for f, m in chunk]
+                res = self._run_group_batched(chunk, out_dirs, remove_ligand=remove_ligand,
+                                              smis=[smi] * len(chunk),
+                                              write_outputs=write_outputs, t_start=t_start,
+                                              gt_ligs=gt_ligs)
+                if res is None:  # unbuildable guidance: one system at a time
+                    res = [self._dock_loaded(it, out_dir, remove_ligand=remove_ligand, smi=smi,
+                                             write_outputs=write_outputs, t_start=t_start)
+                           for it, out_dir in zip(chunk, out_dirs)]
+                results.extend(res)
+        return results
+
     @torch.no_grad()
     def _dock_loaded(self, loaded, output_dir: str, *, remove_ligand: bool,
-                     smi: Optional[str], write_outputs: bool, t_start: float) -> Dict:
+                     smi: Optional[str], write_outputs: bool, t_start: float,
+                     defer_post: bool = False) -> Dict:
         s = self.s
         feats, meta = loaded
         t_loaded = time.time()
-        batch = self._to_device(compact_batch_np(feats))
-        batch_msa_feat = meta.pop("batch_msa_feat", None)
+        batch = self._to_device(feats)
+        batch_msa_feat = meta.pop("batch_msa_feat_c", None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_upload = time.time()
@@ -209,6 +387,8 @@ class DockingPipeline:
             "upload_s": round(t_upload - t_loaded, 3),
             "guidance_s": round(time.time() - t_upload, 3),
         }
+        if meta.get("_recv_detail"):
+            timings["load_detail"] = meta.pop("_recv_detail")
         rounds_run = 0
         x = None
         conditioning = None
@@ -216,7 +396,7 @@ class DockingPipeline:
             rounds_run += 1
             if batch_msa_feat is not None:
                 # MSA clusters resampled per round: recompute the trunk
-                c = compact_msa_np(batch_msa_feat[rnd % len(batch_msa_feat)])
+                c = batch_msa_feat[rnd % len(batch_msa_feat)]
                 batch["msa_tok_c"] = torch.as_tensor(c["msa_tok_c"], device=self.device)
                 batch["msa_del_c"] = torch.as_tensor(c["msa_del_c"], device=self.device)
                 conditioning = None
@@ -259,6 +439,9 @@ class DockingPipeline:
         if s.enable_confidence:
             conf_metrics, rank_scores = self._confidence_scores(batch, conditioning, poses, feats)
         timings["rounds_s"] = round(time.time() - t_start - t_feat, 3)
+        if defer_post:
+            return dict(feats=feats, meta=meta, poses=poses, rounds_run=rounds_run,
+                        t_feat=t_feat, t_start=t_start, timings=timings)
         res = self._postprocess(feats, meta, poses, output_dir, remove_ligand=remove_ligand,
                                 smi=smi, rounds_run=rounds_run, t_feat=t_feat,
                                 t_start=t_start, write_outputs=write_outputs,
@@ -287,16 +470,11 @@ class DockingPipeline:
             scores.append(m["ranking_confidence"])
         return out, np.asarray(scores, np.float32)
 
-    def _postprocess(self, feats, meta, poses: np.ndarray, output_dir: str, *,
-                     remove_ligand: bool, smi: Optional[str], rounds_run: int,
-                     t_feat: float, t_start: float, write_outputs: bool,
-                     conf_metrics=None, rank_scores=None) -> Dict:
-        """Align to the GT pocket-CA frame, rank (by `rank_scores`, higher
-        first, when given), score and write outputs (redocking.py:341-447)."""
+    def _post_args(self, feats, meta, remove_ligand, smi) -> Dict:
+        """NumPy argument pack for ranking.postprocess_poses."""
         lig_idx = np.asarray(meta["ligand_atom_idx"])
-        x_gt = np.asarray(feats["x_gt"])
-        aligned, order, lig_rmsds = ranking_lib.postprocess_poses(
-            poses, x_gt,
+        return dict(
+            x_gt=np.asarray(feats["x_gt"]),
             lig_idx=lig_idx,
             centre_ids=np.asarray(feats["token_id_to_centre_atom_id"]),
             pocket_res=np.asarray(feats["pocket_res_feat"]),
@@ -305,8 +483,30 @@ class DockingPipeline:
             a_mask=np.asarray(feats["a_mask"]),
             enable_ranking=self.s.enable_ranking,
             compute_rmsd=bool(len(lig_idx)) and not remove_ligand and smi is None,
-            rank_scores=rank_scores,
         )
+
+    def _postprocess(self, feats, meta, poses: np.ndarray, output_dir: str, *,
+                     remove_ligand: bool, smi: Optional[str], rounds_run: int,
+                     t_feat: float, t_start: float, write_outputs: bool, post=None,
+                     conf_metrics=None, rank_scores=None) -> Dict:
+        """Align to the GT pocket-CA frame, optionally relax, rank (by
+        `rank_scores`, higher first, when given), score and write outputs
+        (redocking.py:341-447).  `post` short-circuits the NumPy stages
+        with a precomputed (aligned, order, rmsds) from the worker."""
+        lig_idx = np.asarray(meta["ligand_atom_idx"])
+        x_gt = np.asarray(feats["x_gt"])
+        if post is None:
+            relax_fn = None
+            if self.s.enable_sidechain_relaxation:
+                # restraint-field relaxation of each pose (replaces the
+                # reference OpenMM stage, redocking.py:438-445)
+                def relax_fn(aligned):
+                    return np.stack([relax_complex(a, meta) for a in aligned])
+
+            args = self._post_args(feats, meta, remove_ligand, smi)
+            post = ranking_lib.postprocess_poses(poses, args.pop("x_gt"), relax_fn=relax_fn,
+                                                 rank_scores=rank_scores, **args)
+        aligned, order, lig_rmsds = post
         result = {
             "system_id": meta["system_id"],
             "num_poses": len(aligned),
@@ -337,6 +537,13 @@ class DockingPipeline:
                           os.path.join(output_dir, "top5_rmsd.json"))
             if conf_metrics is not None:
                 dump_json(result["confidence"], os.path.join(output_dir, "confidence.json"))
+            if len(lig_idx) and meta.get("ref_mol") is not None:
+                # per-pose validity verdicts for the written top-5, the
+                # native equivalent of the reference's PoseBusters table
+                # (data/relaxation.py:29-50 get_bust_results)
+                report = [{"rank": rank, **_json_safe(check_pose(aligned[idx], meta))}
+                          for rank, idx in enumerate(order[:5])]
+                dump_json(report, os.path.join(output_dir, "bust_report.json"))
         return result
 
     # ------------------------------------------------------------ screening
@@ -382,8 +589,8 @@ class DockingPipeline:
         for smi in smiles:
             t0 = time.time()
             try:
-                feats, meta = self.featurizer.load(system, remove_ligand=True, smi=smi,
-                                                   num_msa_rounds=max(1, self.s.max_rounds))
+                feats, meta = self._load(system, remove_ligand=True, smi=smi,
+                                         num_msa_rounds=max(1, self.s.max_rounds))
             except Exception as e:  # one bad ligand must not end the screen
                 results.append(_failed(smi, e))
                 continue
@@ -425,7 +632,7 @@ class DockingPipeline:
         s = self.s
         n = len(items)
         metas = [m for _, m in items]
-        batch_msa = [m.pop("batch_msa_feat", None) for m in metas]
+        batch_msa = [m.pop("batch_msa_feat_c", None) for m in metas]
         lig_idxs = [np.asarray(m["ligand_atom_idx"]) for m in metas]
         guided = s.enable_physics_correction
         t0 = time.time()
@@ -441,9 +648,8 @@ class DockingPipeline:
                               num_samples_per_round=s.num_samples_per_round, eta_start=s.eta,
                               gt_ligand=None if gt_ligs is None else gt_ligs[b])
                 for b, (_, confs) in enumerate(built)]
-        compacts = [compact_batch_np(f) for f, _ in items]
-        stacked = self._to_device({k: np.stack([np.asarray(c[k]) for c in compacts])
-                                   for k in compacts[0]})
+        stacked = self._to_device({k: np.stack([np.asarray(f[k]) for f, _ in items])
+                                   for k in items[0][0]})
         gen = torch.Generator(device=self.device).manual_seed(s.seed)
         t_feat = time.time() - t_start
         timings = {"guidance_s": round(time.time() - t0, 3)}
@@ -455,7 +661,7 @@ class DockingPipeline:
             for b, bm in enumerate(batch_msa):
                 if bm is not None:
                     # MSA clusters resampled per round: recompute the trunk
-                    c = compact_msa_np(bm[rnd % len(bm)])
+                    c = bm[rnd % len(bm)]
                     for k in ("msa_tok_c", "msa_del_c"):
                         stacked[k][b] = torch.as_tensor(c[k], device=self.device)
                     conds = None

@@ -87,20 +87,23 @@ def pocket_frame_align(
     pocket_ca_mask: np.ndarray,  # [A]
 ) -> np.ndarray:
     """Rigidly align each predicted complex onto the GT pocket-CA frame
-    (redocking.py:341-356 align_mode=pocket_ca); fp32 SVD on the host."""
-    import torch
-
-    from physdock_tpu_torch.utils.geometry import weighted_rigid_align
-
-    # weighted_rigid_align places its second argument in the first's frame:
-    # with the GT as the frame, each pred lands in the GT frame
-    w = torch.as_tensor(np.asarray(pocket_ca_mask, np.float32))
-    gt = torch.as_tensor(np.asarray(x_gt, np.float32))
-    out = []
-    for s in range(len(x_pred)):
-        aligned = weighted_rigid_align(gt[None], torch.as_tensor(np.asarray(x_pred[s], np.float32)), w)
-        out.append(aligned[0].numpy())
-    return np.stack(out)
+    (redocking.py:341-356 align_mode=pocket_ca): the weighted Kabsch fit of
+    `utils/geometry.weighted_rigid_align` in fp32 NumPy, so that the
+    featurizer worker post-processes without torch."""
+    x = np.asarray(x_pred, np.float32)
+    gt = np.asarray(x_gt, np.float32)
+    w = np.asarray(pocket_ca_mask, np.float32)[:, None]
+    denom = w.sum()
+    with np.errstate(divide="ignore", invalid="ignore"):  # no weight: raised below
+        mu_gt = (gt * w).sum(0) / denom
+        mu_x = (x * w).sum(1, keepdims=True) / denom
+    x_hat = x - mu_x
+    h = np.einsum("sij,ik->sjk", x_hat * w, gt - mu_gt)
+    if not np.isfinite(h).all():  # e.g. a crop with no pocket or protein CA
+        raise RuntimeError("pocket_frame_align: non-finite pocket frame (no pocket CA in the crop?)")
+    u, _, vh = np.linalg.svd(h)
+    u[np.linalg.det(u @ vh) < 0, :, 2] *= -1  # the reflection fix
+    return (x_hat @ (u @ vh) + mu_gt).astype(np.float32)
 
 
 def postprocess_poses(
@@ -119,7 +122,7 @@ def postprocess_poses(
     rank_scores=None,
 ):
     """Pocket-frame align, (optionally relax,) rank and score poses
-    (redocking.py:341-447 host stages).  Pure numpy: runs inline or inside
+    (redocking.py:341-447 host stages).  Pure NumPy: runs inline or inside
     the featurizer worker subprocess — pipeline.dock_many offloads it there
     so it overlaps the next system's device rounds instead of idling the
     device.  Returns (aligned [S, A, 3], rank order, lig_rmsds | None).

@@ -11,7 +11,10 @@ the device from int8 indices:
 
 `compact_batch_np` (host, numpy) recovers the indices from the one-hots
 (exact; all-zero rows -> -1, which re-expands to zeros); `expand_batch`
-(device, torch) rebuilds the f32 features.
+(device, torch) rebuilds the f32 features.  `pad_compact_np` and
+`pad_compact_msa_np` re-pad a compact batch to a larger bucket, for a
+group of systems docked in one sampler pass.  The NumPy half imports no
+torch (the featurizer worker compacts without it).
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
 
 FAT_KEYS = ("msa_feat", "rel_tok_feat", "templ_feat")
 
@@ -60,8 +62,52 @@ def compact_batch_np(feats: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+# compact transport keys: symbolic axes (S = MSA rows, T = tokens)
+COMPACT_SCHEMA = {
+    "msa_tok_c": ("S", "T"),
+    "msa_del_c": ("S", "T"),
+    "rel_d_tok_c": ("T", "T"),
+    "rel_bond_type_c": ("T", "T"),
+    "rel_as_double_x2_c": ("T", "T"),
+    "rel_flags_c": ("T", "T"),
+    "templ_bins_c": ("T", "T"),
+    "templ_mask_c": ("T", "T"),
+}
+# index compacts pad with -1 (re-expands to all-zero one-hots, matching the
+# fat features' zero padding); value/flag compacts pad with 0
+_NEG_ONE_PAD = {"msa_tok_c", "rel_d_tok_c", "rel_bond_type_c", "templ_bins_c"}
+
+
+def pad_compact_np(c: Dict[str, np.ndarray], n_tok: int, n_atom: int) -> Dict[str, np.ndarray]:
+    """Re-pad a compact batch to larger (n_tok, n_atom) bucket sizes:
+    schema keys through the featurizer's own `pad_batch` (index fixups
+    included), compact keys with their one-hot-neutral fill."""
+    from physdock_tpu_torch.data.schema import FEATURE_SCHEMA
+    from physdock_tpu_torch.data.synthetic import pad_batch
+
+    out = pad_batch({k: v for k, v in c.items() if k in FEATURE_SCHEMA}, n_tok, n_atom)
+    for k, v in c.items():
+        if k in FEATURE_SCHEMA:
+            continue
+        v = np.asarray(v)
+        pads = [(0, n_tok - v.shape[i]) if ax == "T" else (0, 0)
+                for i, ax in enumerate(COMPACT_SCHEMA[k])]
+        out[k] = np.pad(v, pads, constant_values=-1 if k in _NEG_ONE_PAD else 0)
+    return out
+
+
+def pad_compact_msa_np(c: Dict[str, np.ndarray], n_tok: int) -> Dict[str, np.ndarray]:
+    """Pad a per-round compact MSA dict's token axis."""
+    tok, dele = np.asarray(c["msa_tok_c"]), np.asarray(c["msa_del_c"])
+    return {
+        "msa_tok_c": np.pad(tok, ((0, 0), (0, n_tok - tok.shape[1])), constant_values=-1),
+        "msa_del_c": np.pad(dele, ((0, 0), (0, n_tok - dele.shape[1]))),
+    }
+
 def _idx_one_hot(idx, n):
     """int index -> f32 one-hot; -1 (or any out-of-range) -> zeros."""
+    import torch
+
     idx = idx.long()
     valid = (idx >= 0) & (idx < n)
     oh = torch.nn.functional.one_hot(torch.where(valid, idx, 0), n).float()
@@ -72,6 +118,8 @@ def expand_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Device-side: rebuild the fat f32 features from compacts when absent."""
     if all(k in batch for k in FAT_KEYS):
         return batch
+    import torch
+
     batch = dict(batch)
     if "msa_feat" not in batch and "msa_tok_c" in batch:
         oh = _idx_one_hot(batch["msa_tok_c"], 32)

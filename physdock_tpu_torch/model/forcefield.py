@@ -200,33 +200,47 @@ def _per_system(t, pos):
 
 def _atoms(pos, idx):
     """pos[..., idx, :]: [..., K, 3] for idx [K], or per system for a
-    stacked idx [Bsys, K] and pos [Bsys, ..., L, 3]."""
+    stacked idx [Bsys, K] and pos [Bsys, ..., L, 3].  Indexing, not
+    `torch.gather`: the relaxation differentiates through this, and
+    indexing's gradient (an accumulating index_put) sums in a fixed order
+    on CUDA, where gather's (an atomic scatter_add) changes its float sums
+    from run to run, and with them the poses."""
     if idx.dim() == 1:
         return pos[..., idx, :]
-    idx = _per_system(idx, pos)[..., None]
-    return torch.gather(pos, -2, idx.expand(*pos.shape[:-2], idx.shape[-2], 3))
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return pos.movedim(-2, 1)[rows, idx].movedim(1, -2)
+
+
+def _signed_volume(a, b, c, d):
+    return torch.sum(torch.linalg.cross(b - a, c - a, dim=-1) * (d - a), dim=-1)
 
 
 def _chiral_volumes(pos, idx):
-    a, b, c, d = (_atoms(pos, idx[..., j]) for j in range(4))
-    return torch.sum(torch.linalg.cross(b - a, c - a, dim=-1) * (d - a), dim=-1)
+    return _signed_volume(*(_atoms(pos, idx[..., j]) for j in range(4)))
 
 
 def ff_energy(pos: torch.Tensor, ff: LigandFF) -> torch.Tensor:
     """Restraint energy per pose. pos: [..., L, 3] -> [...], or with a
-    stacked field [Bsys, ..., L, 3] -> [Bsys, ...]."""
+    stacked field [Bsys, ..., L, 3] -> [Bsys, ...].  Every atom the terms
+    read comes from one lookup, so the relaxation's gradient is one
+    ordered accumulation (`_atoms`), not one per term."""
+    cols = [idx[..., j] for idx in (ff.bond_idx, ff.ang_idx, ff.tor_idx, ff.nb_idx,
+                                    ff.chiral_idx) for j in range(idx.shape[-1])]
+    atoms = torch.split(_atoms(pos, torch.cat(cols, dim=-1)), [c.shape[-1] for c in cols],
+                        dim=-2)
+    b0, b1, a0, a1, t0, t1, n0, n1 = atoms[:8]
 
-    def pair_term(idx, r0, mask, k, one_sided=False):
-        d = torch.linalg.norm(_atoms(pos, idx[..., 0]) - _atoms(pos, idx[..., 1]) + 1e-9, dim=-1)
+    def pair_term(x0, x1, r0, mask, k, one_sided=False):
+        d = torch.linalg.norm(x0 - x1 + 1e-9, dim=-1)
         r0 = _per_system(r0, pos)
         diff = torch.relu(r0 - d) if one_sided else d - r0
         return k * torch.sum(_per_system(mask, pos) * diff * diff, dim=-1)
 
-    e = pair_term(ff.bond_idx, ff.bond_r0, ff.bond_mask, K_BOND)
-    e = e + pair_term(ff.ang_idx, ff.ang_r0, ff.ang_mask, K_ANG)
-    e = e + pair_term(ff.tor_idx, ff.tor_r0, ff.tor_mask, K_TOR)
-    e = e + pair_term(ff.nb_idx, ff.nb_r, ff.nb_mask, K_NB, one_sided=True)
-    vol = _chiral_volumes(pos, ff.chiral_idx)
+    e = pair_term(b0, b1, ff.bond_r0, ff.bond_mask, K_BOND)
+    e = e + pair_term(a0, a1, ff.ang_r0, ff.ang_mask, K_ANG)
+    e = e + pair_term(t0, t1, ff.tor_r0, ff.tor_mask, K_TOR)
+    e = e + pair_term(n0, n1, ff.nb_r, ff.nb_mask, K_NB, one_sided=True)
+    vol = _signed_volume(*atoms[8:])
     viol = torch.relu(CHIRAL_MARGIN - _per_system(ff.chiral_sign, pos) * vol)
     return e + K_CHIRAL * torch.sum(_per_system(ff.chiral_mask, pos) * viol * viol, dim=-1)
 

@@ -1,8 +1,10 @@
 """Geometry and tensor primitives (port of `physdock_tpu/utils/geometry.py`).
 
-Torch versions of the device-side helpers the redocking path uses, plus
-the NumPy twins the host featurizer needs.  Randomness comes from an
-explicit `torch.Generator` or `np.random.Generator`.
+Torch versions of the device-side helpers the redocking path uses; the
+NumPy twins the host featurizer needs live in `utils/geometry_np.py`
+(no torch, for the featurizer worker) and are re-exported here.
+Randomness comes from an explicit `torch.Generator` or
+`np.random.Generator`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from physdock_tpu_torch.utils.geometry_np import (  # noqa: F401
+    random_rigid_transform_np,
+    uniform_random_rotation_np,
+)
 
 
 def masked_mean(mask, value, dim, eps: float = 1e-9):
@@ -134,33 +141,3 @@ def smooth_lddt_epsilon(delta):
 def signed_volume(p0, p1, p2, p3):
     """Signed volume of the tetrahedron spanned by four points."""
     return torch.sum(torch.linalg.cross(p1 - p0, p2 - p0, dim=-1) * (p3 - p0), dim=-1)
-
-
-# -------------------- NumPy twins (host-side featurization) -----------------
-
-
-def uniform_random_rotation_np(rng: np.random.Generator, shape=()):
-    """NumPy twin of uniform_random_rotation for host featurization."""
-
-    def sphere():
-        phi = rng.random(shape) * 2 * np.pi
-        theta = np.arccos(rng.random(shape) * 2 - 1)
-        return np.stack(
-            [np.cos(phi) * np.sin(theta), np.sin(phi) * np.sin(theta), np.cos(theta)],
-            axis=-1,
-        )
-
-    e0 = sphere()
-    u1 = sphere()
-    e1 = u1 - e0 * np.sum(u1 * e0, axis=-1, keepdims=True)
-    e1 = e1 / np.linalg.norm(e1, axis=-1, keepdims=True)
-    e2 = np.cross(e0, e1)
-    return np.stack([e0, e1, e2], axis=-2)
-
-
-def random_rigid_transform_np(rng: np.random.Generator, pos: np.ndarray):
-    """Random rotation + unit-normal translation applied to [N, 3] points
-    (per-conformer ref_pos augmentation in the featurizer)."""
-    rot = uniform_random_rotation_np(rng)
-    t = rng.normal(size=(3,))
-    return pos @ rot.T + t

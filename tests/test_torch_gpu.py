@@ -8,7 +8,8 @@ Each wrapper launches the CUDA kernel on ragged shapes (neither axis a
 multiple of the 64-row tile), with fully masked rows and the -1e9 / -2e9
 tiers, and is held against its plain version on the same card tensors:
 fp32 max abs error <= 1e-4 with TF32 off, bf16 <= 2e-2, a bias per system
-over sample-major rows included.  The training pair
+over sample-major rows included (the batched screen's and the batched
+redock's sites).  The training pair
 (`flash_fwd_lse`, `flash_bwd`) is held the same way at D = 32, 64 and 128,
 relative to max|plain| (fp32 1e-4, bf16 2e-2), and its tensor-core design
 (D = 32) on ragged lengths, both bias dtypes, batch groups, fully masked
@@ -287,6 +288,68 @@ def test_tc_bias_per_system_sample_major(folded, dtype):
     assert bool(torch.isfinite(out).all())
     err = float((out.float() - ref.float()).abs().max())
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,s", [("folded", 896), ("folded_v3", 2048)])
+def test_tc_batched_redock_per_system_bias(name, s, dtype):
+    """The batched redock's atom-DiT site (`--dock_batch_size 4`): 4
+    systems re-padded to the chunk's largest bucket (896 atoms at crop
+    128/1024, row 3; 2048 at crop 256/2048, row 1), 20 samples each, rows
+    sample-major, one [4, H, S, S] bias per system whose padded key columns
+    (-2e9) start where that system's atoms end; against each system's
+    rows with its own bias."""
+    _need_cuda()
+    n, g, h, d = 20, 4, 4, 32
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.normal(size=(n * g, s, h * d)).astype(np.float32))
+               .to(dtype).cuda() for _ in range(3))
+    bias = rng.normal(size=(g, h, s, s)).astype(np.float32)
+    for i, cut in enumerate((0, 32, 64, 100)):
+        bias[i, :, :, s - cut:] = -2e9
+    bias = torch.from_numpy(bias).to(dtype).cuda()
+    qs, ks, vs = (split_view(x, h) for x in (q, k, v))
+    ref = torch.empty_like(qs)
+    for i in range(g):
+        ref[i::g] = _flash_lib.sdpa_plain(qs[i::g], ks[i::g], vs[i::g], bias[i])
+    wrapper = flash_sdpa_folded_v3 if name == "folded_v3" else flash_sdpa_folded
+    _flash_lib.reset_launches()
+    out = split_view(wrapper(q, k, v, bias, h), h)
+    torch.cuda.synchronize()
+    assert _flash_lib.LAUNCHES[f"flash_sdpa_{name}"] == 1
+    assert not any(_flash_lib.BIAS_EXPANSIONS.values())
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.gpu
+def test_stacked_relaxation_is_bitwise_repeatable():
+    """The guided sampler's force-field relaxation over a stacked field
+    (every dock is a group of one) differentiates through the per-system
+    atom lookup: on the card its gradient must sum in a fixed order, so
+    that a system docks to the same poses in every run (dock_many against
+    one dock after the other)."""
+    _need_cuda()
+    from physdock_tpu_torch.model.forcefield import (
+        build_ligand_ff,
+        relax_positions,
+        stack_ligand_ffs,
+    )
+
+    rng = np.random.default_rng(17)
+    ffs = []
+    for n in (24, 30):
+        ref = rng.normal(size=(n, 3)).astype(np.float32) * 2.0
+        bonds = [(i, i + 1) for i in range(n - 1)] + [(0, 5), (3, 9)]
+        ffs.append(build_ligand_ff([6] * n, bonds, ref, device="cuda"))
+    ff = stack_ligand_ffs(ffs)
+    pos = torch.from_numpy(rng.normal(size=(2, 20, 30, 3)).astype(np.float32) * 2.0).cuda()
+    runs = [relax_positions(pos, ff, iters=20) for _ in range(3)]
+    assert bool(torch.isfinite(runs[0]).all()) and float((runs[0] - pos).abs().max()) > 1e-3
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
 
 
 @pytest.mark.gpu
