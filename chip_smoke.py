@@ -61,6 +61,10 @@ exits non-zero (no phase is caught):
                  each device from its own trunk: p_pae, p_pde and p_plddt
                  within rel 1e-3 of max|cpu|, rows 3 and 4 launched in the
                  head
+ 5a. recycle  -- the toy conditioning with num_recycles=1 and non-zero
+                 recycle projections (from a numpy seed; they are
+                 zero-initialised) at phase 5's shapes, card against CPU:
+                 s and z within rel 1e-3 of max|cpu|
   6. grad     -- one training step's loss and gradient of the toy model
                  (committed weights) on 5SAK_ZRY_A_1 featurized in training
                  mode at crop 128/1024 with 4 augmentation samples, the
@@ -74,7 +78,13 @@ exits non-zero (no phase is caught):
                  weights on the corrupt-pose route (alpha_pae 1), the
                  corruption's draws from the same CPU generator: the same
                  limits, and every confidence-head parameter with a
-                 non-zero gradient on the card
+                 non-zero gradient on the card; then grad bf16: the plain
+                 step in bf16 compute on the card against the fp32 step on
+                 the card, within the JAX package's own bf16 spread as
+                 tests/test_torch_train_bf16.py measures it (gradient rel
+                 4.61e-2 by global norm, each loss term rel 3.68e-2), rows
+                 5, 6, 2 and 4 launched, every launch in bf16, rows 5-6 on
+                 the tensor-core pair
   7. accuracy -- guided redocking of the 4 demo systems with the committed
                  toy weights (_overfit/ema_params.npz) at crop 128/1024,
                  40 steps, 2 rounds, 20 poses per round, fp32, through
@@ -85,7 +95,10 @@ exits non-zero (no phase is caught):
                  top-ranked ligand RMSD must be < 2 A, rows 2-4 launched,
                  and every system directory must hold a bust_report.json
                  of five entries, each with pose_valid
- 7a. redock_many -- the 4 systems one after the other with
+ 7a. accuracy bf16 -- the accuracy dock with --bf16: top-1 < 2 A on 4/4,
+                 each system printed beside its fp32 top-1; rows 2-4
+                 launched, every launch in bf16, the SIMT route never
+ 7b. redock_many -- the 4 systems one after the other with
                  DockingPipeline.dock, featurized in process (what the
                  CLI does for one system), each held to its dock_many
                  result (rank order equal, pose RMSDs within 1e-4 A); then
@@ -96,7 +109,7 @@ exits non-zero (no phase is caught):
                  --enable_sidechain_relaxation (top-1 < 2 A); the
                  sequential, dock_many and batched walls, and the seconds
                  per system of check_pose and relax_complex
- 7b. confidence -- the same dock of the 4 systems with the committed
+ 7c. confidence -- the same dock of the 4 systems with the committed
                  confidence weights and --enable_confidence
                  --confidence_ranking: every pose's metrics finite
                  (mean_plddt in [0, 100], ptm and iptm in [0, 1]),
@@ -121,7 +134,9 @@ exits non-zero (no phase is caught):
                  once; rows 5-6 on the tensor-core pair, the SIMT pair
                  never; seconds per step (the wait for the batch and its
                  copy included, and also shown alone), peak memory,
-                 launches per step; then a second run with
+                 launches per step; then the same run with --bf16 (every
+                 launch in bf16; its seconds per step and peak memory
+                 printed beside the fp32 run's); then a run with
                  --use_mini_rollout --mini_rollout_steps 12 --alpha_pae 1
                  (the medium preset with its head): the pLDDT, PAE and PDE
                  losses logged and finite, the head's parameters and EMA
@@ -750,6 +765,61 @@ def phase_head(torch):
         fail(f"confidence head never launched {missing}")
 
 
+def recycle_outputs(torch, batch, device):
+    """(s, z) of the toy conditioning with one recycle: the committed toy
+    weights, and the four recycle tensors from a numpy seed (non-zero; they
+    are zero-initialised, so at init a wrong loop would not show)."""
+    import numpy as np
+
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.train.checkpoint import load_params_npz
+
+    model = PhysDock(dataclasses.replace(PhysDockConfig.named("toy").model, num_recycles=1))
+    sd = load_params_npz(PARAMS)
+    rng = np.random.default_rng(21)
+    for n, t in model.state_dict().items():
+        if ".recycle_" in n:
+            a = (1.0 + 0.2 * rng.normal(size=t.shape) if "norm" in n
+                 else 0.05 * rng.normal(size=t.shape))
+            sd[n] = torch.from_numpy(a.astype(np.float32))
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device).eval()
+    b = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    with torch.no_grad():
+        _, _, s, z = model.conditioning(b)
+    return [t.float().cpu() for t in (s, z)]
+
+
+def phase_recycle(torch):
+    """recycle: the toy conditioning with num_recycles=1 and non-zero
+    recycle projections at phase 5's shapes, on the card through the
+    kernels and on the CPU through their plain versions: s and z within rel
+    MODEL_REL of max|cpu|; rows 2 and 4 launched."""
+    from physdock_tpu_torch.data.synthetic import make_synthetic_batch
+    from physdock_tpu_torch.ops import _flash_lib
+
+    batch = make_synthetic_batch(n_tokens=256, n_atoms=2048, n_msa=8, n_ligand_tokens=32, seed=7)
+    _flash_lib.reset_launches()
+    card = recycle_outputs(torch, batch, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(_flash_lib.LAUNCHES)
+    plain = recycle_outputs(torch, batch, "cpu")
+    errs = {}
+    for name, o, r in zip(("s", "z"), card, plain):
+        if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+            fail(f"recycle {name}: shape {tuple(o.shape)} vs {tuple(r.shape)}, or not finite")
+        errs[name] = float((o - r).abs().max() / r.abs().max())
+    log(f"[recycle] num_recycles=1, 256 tokens, 2048 atoms: rel max abs err card vs CPU plain "
+        f"{json.dumps(errs)}; launches {json.dumps(launches)}")
+    bad = {k: v for k, v in errs.items() if not (v <= MODEL_REL)}
+    if bad:
+        fail(f"recycle: the card differs from the CPU by more than rel {MODEL_REL}: {bad}")
+    missing = [k for k in ("flash_sdpa_grouped", "flash_sdpa") if launches[k] <= 0]
+    if missing:
+        fail(f"recycle never launched {missing}")
+
+
 # -------------------------------------------------------------------- grad
 
 GRAD_REL_LOSS, GRAD_REL = 1e-4, 1e-3
@@ -767,17 +837,19 @@ def featurize_train(path, crop, atom_crop, seed=0):
     return pad_batch({k: v for k, v in feats.items() if k in FEATURE_SCHEMA}, crop, atom_crop)
 
 
-def train_loss_and_grads(torch, feats, device, n_aug=4, seed=0):
+def train_loss_and_grads(torch, feats, device, n_aug=4, seed=0, bf16=False):
     """Loss, loss terms and every parameter's gradient of one training
-    forward of the toy model with the committed weights on `device`."""
+    forward of the toy model with the committed weights on `device`, in
+    fp32 or in bf16 compute (fp32 parameters and gradients)."""
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.infer.pipeline import arrays_to_device
     from physdock_tpu_torch.model.losses import physdock_loss
     from physdock_tpu_torch.model.physdock import PhysDock
     from physdock_tpu_torch.model.weights import load_jax_params
 
-    cfg = PhysDockConfig.named("toy", inference_mode=False, num_augmentation_sample=n_aug)
-    model = PhysDock(cfg.model)
+    cfg = PhysDockConfig.named("toy", inference_mode=False, num_augmentation_sample=n_aug,
+                               bf16=bf16)
+    model = PhysDock(cfg.model, dtype=cfg.dtypes.compute_dtype)
     load_jax_params(model, PARAMS)
     model = model.to(device)
     batch = arrays_to_device(feats, device)
@@ -843,6 +915,7 @@ def phase_grad(torch):
     launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
     cpu = train_loss_and_grads(torch, feats, "cpu")
     compare_grads("plain step", card, cpu)
+    phase_grad_bf16(torch, feats, card)
     log(f"[grad] launches: {json.dumps(launches)}; rows 5-6 by design: {json.dumps(routes)}")
     want = ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa")
     missing = [n for n in want if launches[n] <= 0]
@@ -872,6 +945,46 @@ def phase_grad(torch):
     if missing or stray:
         fail(f"grad mini-rollout: not launched {missing}, launched though folded {stray}")
     check_tc_routes("grad mini-rollout", routes)
+
+
+# the JAX package's own bf16 spread of one train step's gradient (relative
+# global norm) and loss terms, measured by tests/test_torch_train_bf16.py
+GRAD_BF16_REL, GRAD_BF16_TERMS = 4.61e-2, 3.68e-2
+
+
+def phase_grad_bf16(torch, feats, card32):
+    """grad bf16: the grad phase's step in bf16 compute on the card against
+    the same step in fp32 on the card (`card32`): every loss term within rel
+    GRAD_BF16_TERMS and ||g_bf16 - g_fp32|| <= GRAD_BF16_REL ||g_fp32||, the
+    limits the JAX package's own bf16 spread sets
+    (tests/test_torch_train_bf16.py); rows 5, 6, 2 and 4 launched, in bf16
+    only, and rows 5-6 on the tensor-core pair."""
+    from physdock_tpu_torch.ops import _flash_lib
+
+    _flash_lib.reset_launches()
+    card16 = train_loss_and_grads(torch, feats, "cuda", bf16=True)
+    torch.cuda.synchronize()
+    launches, routes, dtypes = (dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES),
+                                dict(_flash_lib.DTYPES))
+    diff = math.sqrt(sum(float(((card16[2][n] - g) ** 2).sum()) for n, g in card32[2].items()))
+    norm = math.sqrt(sum(float((g ** 2).sum()) for g in card32[2].values()))
+    terms = {k: abs(card16[1][k] - v) / abs(v) for k, v in card32[1].items() if v != 0}
+    log(f"[grad] bf16 step vs fp32 step on the card: loss {card16[0]!r} vs {card32[0]!r}; terms "
+        f"rel {json.dumps(terms)}; ||g_bf16 - g_fp32|| / ||g_fp32|| = {diff / norm:.3e} "
+        f"(limits {GRAD_BF16_TERMS}, {GRAD_BF16_REL})")
+    log(f"[grad] bf16 launches: {json.dumps(launches)}; rows 5-6: {json.dumps(routes)}; "
+        f"by dtype: {json.dumps(dtypes)}")
+    zero = [k for k, v in card32[1].items() if v == 0 and card16[1][k] != 0]
+    if not all(math.isfinite(v) for v in card16[1].values()) or zero or not all(
+            v <= GRAD_BF16_TERMS for v in terms.values()):
+        fail(f"grad bf16: loss terms {card16[1]} vs fp32 {card32[1]} beyond rel {GRAD_BF16_TERMS}")
+    if not diff <= GRAD_BF16_REL * norm:
+        fail(f"grad bf16: ||g_bf16 - g_fp32|| {diff} > {GRAD_BF16_REL} * ||g_fp32|| {norm}")
+    missing = [n for n in ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa")
+               if launches[n] <= 0]
+    if missing or dtypes["float32"] or not dtypes["bfloat16"]:
+        fail(f"grad bf16: not launched {missing}, or launches by dtype {dtypes}")
+    check_tc_routes("grad bf16", routes)
 
 
 def check_tc_routes(phase, routes):
@@ -1004,6 +1117,39 @@ def phase_accuracy(torch, work):
         f"{json.dumps(valid)}; check_pose {sum(checks.calls) / len(results):.4f} s per system "
         f"({len(checks.calls)} poses)")
     return tops, results, many.calls[0], sum(checks.calls) / len(results)
+
+
+def phase_accuracy_bf16(torch, work, tops32):
+    """accuracy bf16: the accuracy dock with --bf16, counters reset before
+    and read after: top-1 < 2 A on 4/4, each system printed beside its fp32
+    top-1 of this run; rows 2-4 launched, every launch in bf16, the SIMT
+    route never."""
+    from physdock_tpu_torch.ops import _flash_lib
+
+    out = os.path.join(work, "accuracy_bf16")
+    _flash_lib.reset_launches()
+    results = dock(["-f", SYSTEMS], out, 128, 1024, extra=["--bf16"])
+    torch.cuda.synchronize()
+    launches, routes, dtypes = (dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES),
+                                dict(_flash_lib.DTYPES))
+    tops = {}
+    for r in results:
+        if "error" in r or not r.get("top5_rmsd"):
+            fail(f"accuracy bf16: {r.get('system_id')}: {r.get('error', 'no rmsd')}")
+        tops[r["system_id"]] = r["top5_rmsd"][0]
+    log(f"[accuracy bf16] top-ranked RMSD (A), bf16 / fp32: "
+        f"{json.dumps({k: [v, tops32.get(k)] for k, v in tops.items()})}")
+    log(f"[accuracy bf16] launches {json.dumps(launches)}; by dtype {json.dumps(dtypes)}; "
+        f"routes {json.dumps(routes)}")
+    bad = {k: v for k, v in tops.items() if not (v < 2.0)}
+    if len(tops) != 4 or bad:
+        fail(f"accuracy bf16: top-ranked RMSD >= 2 A or systems missing: {tops}")
+    missing = [k for k in ("flash_sdpa_grouped", "flash_sdpa_folded", "flash_sdpa")
+               if launches[k] <= 0]
+    if missing or dtypes["float32"] or not dtypes["bfloat16"] or routes["fwd_lse_simt"] \
+            or routes["bwd_simt"]:
+        fail(f"accuracy bf16: not launched {missing}, launches by dtype {dtypes}, routes {routes}")
+    return tops
 
 
 def phase_redock_many(torch, work, card, acc_results, many_s, check_s):
@@ -1458,9 +1604,11 @@ TRAIN_STEPS = 3
 MINI_FLAGS = ["--use_mini_rollout", "--mini_rollout_steps", "12", "--alpha_pae", "1.0"]
 
 
-def phase_train(torch, work, mini=False):
+def phase_train(torch, work, mini=False, bf16=False):
     """The train CLI at full width (with `mini`, the mini-rollout run with
-    the confidence head); returns launches per step."""
+    the confidence head; with `bf16`, --bf16, every launch in bf16);
+    returns launches per step, seconds per step (steps 2-3) and peak
+    memory."""
     from physdock_tpu_torch.cli.common import load_model
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.model.physdock import PhysDock
@@ -1471,13 +1619,13 @@ def phase_train(torch, work, mini=False):
     from physdock_tpu_torch.train.optim import make_optimizer
     from physdock_tpu_torch.train.step import init_train_state
 
-    tag = "train mini-rollout" if mini else "train"
+    tag = "train mini-rollout" if mini else "train bf16" if bf16 else "train"
     data = os.path.join(work, "train_data", "train_val")
     if not os.path.isdir(data):
         os.makedirs(data)
         for f in sorted(os.listdir(SYSTEMS)):
             os.symlink(os.path.join(SYSTEMS, f), os.path.join(data, f))
-    out = os.path.join(work, "train_ckpt_mini" if mini else "train_ckpt")
+    out = os.path.join(work, "train_ckpt_" + tag.replace(" ", "_"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _flash_lib.reset_launches()
@@ -1487,10 +1635,12 @@ def phase_train(torch, work, mini=False):
         "--crop_size", "256", "--atom_crop_size", "2048", "--num_augmentation_sample", "48",
         "--batch_size", "1", "--total_steps", str(TRAIN_STEPS), "--save_every", str(TRAIN_STEPS),
         "--seed", "0", "--device", "cuda", *(MINI_FLAGS if mini else []),
+        *(["--bf16"] if bf16 else []),
     ])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, routes = dict(_flash_lib.LAUNCHES), dict(_flash_lib.ROUTES)
+    dtypes = dict(_flash_lib.DTYPES)
     peak = torch.cuda.max_memory_allocated()
     state, model = res["state"], res["model"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -1506,7 +1656,9 @@ def phase_train(torch, work, mini=False):
         f"({peak / 2**30:.2f} GiB); wall {wall:.2f} s")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     log(f"[{tag}] launches per step: {json.dumps(per_step)}; rows 5-6 by design: "
-        f"{json.dumps(routes)}")
+        f"{json.dumps(routes)}; by dtype {json.dumps(dtypes)}")
+    if bf16 and (dtypes["float32"] or not dtypes["bfloat16"]):
+        fail(f"{tag}: launches by dtype {dtypes}")
     if res["steps"] != list(range(1, TRAIN_STEPS + 1)) or not all(
             math.isfinite(v) for lg in res["logs"] for v in lg.values()):
         fail(f"{tag}: steps {res['steps']} or non-finite losses {res['logs']}")
@@ -1544,7 +1696,7 @@ def phase_train(torch, work, mini=False):
         for n in state.params)
     if not same:
         fail(f"{tag}: the step-{TRAIN_STEPS} checkpoint does not restore the train state")
-    npz = os.path.join(work, "ema_params_mini.npz" if mini else "ema_params.npz")
+    npz = os.path.join(work, f"ema_params_{tag.replace(' ', '_')}.npz")
     ckpt_lib.save_params_npz(npz, state.ema_params)
     # every key used exactly once, or it raises
     counts = load_jax_params(PhysDock(model.cfg, with_confidence=mini), npz)
@@ -1553,7 +1705,7 @@ def phase_train(torch, work, mini=False):
     log(f"[{tag}] checkpoint {os.path.basename(path)} restores; EMA exported "
         f"({os.path.getsize(npz)} B, {counts['keys']} arrays) and loaded into a fresh model"
         f"{' with the head' if mini else ''} ({time.time() - t0:.2f} s)")
-    return per_step
+    return per_step, sum(sec[1:]) / len(sec[1:]), peak
 
 
 # -------------------------------------------------------------------- main
@@ -1608,8 +1760,12 @@ def main():
     phase_model(torch)
     log(f"[model] card matches the CPU at crop 256/2048 ({time.time() - t0:.2f} s)")
     t0 = time.time()
+    phase_recycle(torch)
+    log(f"[recycle] card matches the CPU with one recycle ({time.time() - t0:.2f} s)")
+    t0 = time.time()
     phase_grad(torch)
-    log(f"[grad] card matches the CPU for one training step ({time.time() - t0:.2f} s)")
+    log(f"[grad] card matches the CPU for one training step, and bf16 the fp32 step "
+        f"({time.time() - t0:.2f} s)")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     t0 = time.time()
@@ -1626,6 +1782,10 @@ def main():
                and acc_launches[k] <= 0]
     if missing:  # the atom DiT takes row 3 below 1024 atoms
         fail(f"accuracy dock (dock_many) never launched {missing}")
+
+    t0 = time.time()
+    phase_accuracy_bf16(torch, work, tops)
+    log(f"[accuracy bf16] done ({time.time() - t0:.2f} s)")
 
     t0 = time.time()
     batched_launches = phase_redock_many(torch, work, card, acc_results, many_s, check_s)
@@ -1661,10 +1821,15 @@ def main():
              f"of the CPU reading {MAIN_RMSD_REF} A")
 
     t0 = time.time()
-    per_step = phase_train(torch, work)
+    per_step, sec32, peak32 = phase_train(torch, work)
     log(f"[train] done ({time.time() - t0:.2f} s)")
     t0 = time.time()
-    mini_per_step = phase_train(torch, work, mini=True)
+    _, sec16, peak16 = phase_train(torch, work, bf16=True)
+    log(f"[train bf16] s/step (steps 2-3) bf16 {sec16:.3f} fp32 {sec32:.3f}; peak memory "
+        f"allocated bf16 {peak16} B ({peak16 / 2**30:.2f} GiB) fp32 {peak32} B "
+        f"({peak32 / 2**30:.2f} GiB) ({time.time() - t0:.2f} s; {card})")
+    t0 = time.time()
+    mini_per_step, _, _ = phase_train(torch, work, mini=True)
     log(f"[train mini-rollout] done ({time.time() - t0:.2f} s)")
 
     t0 = time.time()

@@ -17,8 +17,10 @@ import torch
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-o", "--output_dir", required=True)
     p.add_argument("--params", default=None,
-                   help="JAX parameter artifact (.npz, physdock_tpu/train/checkpoint.py); "
-                        "random weights from --seed when absent")
+                   help="weights: a JAX .npz artifact (physdock_tpu/train/checkpoint.py), a "
+                        "train-state .pt of the port's trainer (its EMA), or a reference "
+                        "params.pt (release, Uni-Core or compiled layout); random weights "
+                        "from --seed when absent")
     p.add_argument("--model_name", default="medium",
                    choices=["toy", "tiny", "small", "medium", "full"])
     p.add_argument("--device", default="cuda",
@@ -134,22 +136,24 @@ def build_pipeline(args):
     return DockingPipeline(cfg, model, featurizer, settings, device=device)
 
 
-def load_model(path: Optional[str], cfg, seed: int = 0, with_confidence: bool = False):
-    """PhysDock, with the confidence head when asked, with weights from a
-    JAX `.npz` (every key used exactly once; a file's confidence head is
-    left unused, and counted, by a model without one, as the JAX CLI
-    allows; a model with the head raises ValueError on a file without
-    it), or random weights from `seed` when no path is given."""
+def load_model(path: Optional[str], cfg, seed: int = 0, with_confidence: bool = False,
+               ckpt=None):
+    """PhysDock in `cfg`'s compute dtype, with the confidence head when
+    asked, with weights from `path` (`model/import_weights.load_weights`:
+    a JAX `.npz`, the EMA of a train-state `.pt`, or a reference
+    `params.pt` in any of its layouts; `ckpt`, the file already read), or
+    random weights from `seed` when no path is given. Every key is used
+    exactly once; a file's confidence head is left unused, and counted, by
+    a model without one, as the JAX CLI allows; a model with the head
+    raises ValueError on a file without it."""
+    from physdock_tpu_torch.model.import_weights import load_weights
     from physdock_tpu_torch.model.physdock import PhysDock
-    from physdock_tpu_torch.model.weights import load_jax_params
 
-    if path is not None and not path.endswith(".npz"):
-        raise ValueError(f"--params takes the JAX .npz artifact, got {path}")
     gen = torch.Generator().manual_seed(seed)
     model = PhysDock(cfg.model, dtype=cfg.dtypes.compute_dtype, generator=gen,
                      with_confidence=with_confidence)
     if path is not None:
-        counts = load_jax_params(model, path)
+        counts = load_weights(model, path, ckpt)
         if counts["unused_head_keys"]:
             print(f"[params] {path}: {counts['unused_head_keys']} confidence-head arrays "
                   f"({counts['unused_head_params']} parameters) unused: the model has no "

@@ -15,6 +15,7 @@ unused and counted.
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
 from typing import Dict
 
@@ -88,6 +89,41 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def load_state_dict_checked(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                            source: str) -> None:
+    """Load a port-named state_dict into `model`, requiring every parameter
+    of `sd` and of the model to be used exactly once, with equal shapes."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"{source}: weight bridge mismatch: missing {missing[:8]} "
+                       f"({len(missing)}), unused {extra[:8]} ({len(extra)})")
+    for k, t in sd.items():
+        if tuple(t.shape) != tuple(want[k].shape):
+            raise ValueError(f"{k}: file shape {tuple(t.shape)} != model {tuple(want[k].shape)}")
+    model.load_state_dict(sd, strict=True)
+
+
+def split_head(model: torch.nn.Module, params: Dict, head_prefix: str, source: str) -> Dict:
+    """Set a file's confidence-head entries (names starting `head_prefix`)
+    aside when `model` has no head, and return them; when it has one, a
+    file without the head raises ValueError."""
+    head_keys = sorted(k for k in params if k.startswith(head_prefix))
+    if any(n.startswith(HEAD + ".") for n in model.state_dict()):
+        if not head_keys:
+            raise ValueError(f"the confidence head (--enable_confidence, --confidence_ranking, "
+                             f"--use_mini_rollout) needs params trained with it; {source} has "
+                             f"none")
+        return {}
+    return {k: params.pop(k) for k in head_keys}
+
+
+def counts(n_keys: int, unused: Dict) -> Dict[str, int]:
+    return {"keys": n_keys, "unused_head_keys": len(unused),
+            "unused_head_params": int(sum(math.prod(v.shape) for v in unused.values()))}
+
+
 def load_jax_params(model: torch.nn.Module, path: str) -> Dict[str, int]:
     """Load a JAX `.npz` into `model`, requiring every parameter of the
     file and of the model to be used exactly once; when the model has no
@@ -95,24 +131,6 @@ def load_jax_params(model: torch.nn.Module, path: str) -> Dict[str, int]:
     has one, a file without it raises ValueError. Returns
     the counts: keys loaded, and head keys and parameters left unused."""
     flat = load_npz(path)
-    want = model.state_dict()
-    head_keys = {k for k in flat if k.startswith(PREFIX + HEAD + "/")}
-    unused = {}
-    if any(n.startswith(HEAD + ".") for n in want):
-        if not head_keys:
-            raise ValueError(f"the confidence head (--enable_confidence, --confidence_ranking, "
-                             f"--use_mini_rollout) needs params trained with it; {path} has none")
-    else:
-        unused = {k: flat.pop(k) for k in sorted(head_keys)}
-    sd = jax_flat_to_state_dict(flat)
-    missing = sorted(set(want) - set(sd))
-    extra = sorted(set(sd) - set(want))
-    if missing or extra:
-        raise KeyError(f"weight bridge mismatch: missing {missing[:8]} ({len(missing)}), "
-                       f"unused {extra[:8]} ({len(extra)})")
-    for k, t in sd.items():
-        if tuple(t.shape) != tuple(want[k].shape):
-            raise ValueError(f"{k}: file shape {tuple(t.shape)} != model {tuple(want[k].shape)}")
-    model.load_state_dict(sd, strict=True)
-    return {"keys": len(flat), "unused_head_keys": len(unused),
-            "unused_head_params": int(sum(v.size for v in unused.values()))}
+    unused = split_head(model, flat, PREFIX + HEAD + "/", path)
+    load_state_dict_checked(model, jax_flat_to_state_dict(flat), path)
+    return counts(len(flat), unused)

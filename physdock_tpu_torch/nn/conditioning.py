@@ -119,14 +119,18 @@ class AtomEmbedder(nn.Module):
 class TokenEmbedder(nn.Module):
     """Token-level conditioning: pooled atoms + target/key-res/pocket
     features, pair init + relpos + bonds, MSA -> Evoformer -> template ->
-    Pairformer."""
+    Pairformer.
+
+    With `num_recycles` > 0 the MSA-to-Pairformer trunk runs
+    num_recycles + 1 times over the same modules (the JAX package's
+    AF2-style recycle embedder): each pass after the first adds a
+    zero-initialised projection of the previous pass's (s, z), detached,
+    to (s0, z0), and embeds the MSA again from the same `msa_feat`."""
 
     def __init__(self, target_dim, msa_dim, c_a, c_s, c_m, c_z, no_blocks_evoformer,
                  no_blocks_pairformer, no_blocks_template=2, num_recycles=0, inf=1e9,
                  eps=1e-8, dtype=torch.float32, generator=None):
         super().__init__()
-        if num_recycles:
-            raise NotImplementedError("num_recycles > 0 is not ported")
         kw = dict(dtype=dtype, generator=generator)
         nb = dict(bias=False, **kw)
         skw = dict(inf=inf, eps=eps, dtype=dtype, generator=generator)
@@ -147,6 +151,13 @@ class TokenEmbedder(nn.Module):
         self.linear_m = Linear(c_m, c_s, **nb)
         self.linear_s = Linear(c_s, c_s, **nb)
         self.pairformer = Pairformer(c_s, c_z, no_blocks_pairformer, **skw)
+        self.num_recycles = num_recycles
+        if num_recycles:
+            # created only with recycling, so files without it load unchanged
+            self.recycle_norm_s = RMSNorm(c_s, eps=eps, dtype=dtype)
+            self.recycle_linear_s = Linear(c_s, c_s, init="final", **nb)
+            self.recycle_norm_z = RMSNorm(c_z, eps=eps, dtype=dtype)
+            self.recycle_linear_z = Linear(c_z, c_z, init="final", **nb)
 
     def forward(self, batch: Batch, a):
         z_mask = batch["z_mask"]
@@ -165,12 +176,20 @@ class TokenEmbedder(nn.Module):
                                     batch["residue_index"], batch["rel_tok_feat"])
             + self.linear_bonds(batch["token_bonds_feature"][..., None].to(dt))
         )
-        m = self.linear_msa_feat(batch["msa_feat"].to(dt)) + self.linear_s_input(s0)
-        m, z = self.evoformer(m, z0, z_mask)
-        z = z + self.template_pair_embedder(
-            z, batch["templ_feat"], batch["asym_id"], batch["t_mask"], z_mask)
-        s = self.linear_m(m[0]) + self.linear_s(s0)
-        return self.pairformer(s, z, z_mask)
+        msa = batch["msa_feat"].to(dt)
+        s_out = z_out = None
+        for r in range(self.num_recycles + 1):
+            s_in, z_in = s0, z0
+            if r:
+                s_in = s0 + self.recycle_linear_s(self.recycle_norm_s(s_out.detach()))
+                z_in = z0 + self.recycle_linear_z(self.recycle_norm_z(z_out.detach()))
+            m = self.linear_msa_feat(msa) + self.linear_s_input(s_in)
+            m, z = self.evoformer(m, z_in, z_mask)
+            z = z + self.template_pair_embedder(
+                z, batch["templ_feat"], batch["asym_id"], batch["t_mask"], z_mask)
+            s = self.linear_m(m[0]) + self.linear_s(s_in)
+            s_out, z_out = self.pairformer(s, z, z_mask)
+        return s_out, z_out
 
 
 class DiffusionConditioning(nn.Module):

@@ -45,11 +45,22 @@ def _res(x, delta):
 def run_block(blk, *args):
     """One block of a stack: checkpointed when grad mode is on (only its
     inputs are kept for the backward), a plain call otherwise, so
-    redocking under `no_grad` does not change."""
-    if torch.is_grad_enabled():
+    redocking under `no_grad` does not change. `set_remat(model, False)`
+    keeps every activation instead (no recompute: fewer launches, more
+    memory; the same numbers, as every kernel is deterministic)."""
+    if torch.is_grad_enabled() and getattr(blk, "remat", True):
         # the blocks draw no random numbers: no RNG state to stash
         return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
     return blk(*args)
+
+
+def set_remat(model: nn.Module, on: bool) -> None:
+    """Checkpoint (`on`) or keep the activations of every block of every
+    stack in `model` under grad."""
+    for m in model.modules():
+        if isinstance(m, _Stack):
+            for blk in m.blocks:
+                blk.remat = on
 
 
 class _Stack(nn.Module):

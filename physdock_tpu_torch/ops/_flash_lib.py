@@ -66,6 +66,8 @@ LAUNCHES = {
 }
 # launches per design of the training pair, to show which one a run took
 ROUTES = {"fwd_lse_tc": 0, "fwd_lse_simt": 0, "bwd_tc": 0, "bwd_simt": 0}
+# kernel launches (forward and backward) per q dtype, to show a run's precision
+DTYPES = {"float32": 0, "bfloat16": 0}
 # per wrapper: biases it expanded to one block per (batch, head) before a
 # launch, a copy of B*H*S_q*S_k elements (`flash_attention._bias_lead`)
 BIAS_EXPANSIONS = dict.fromkeys(LAUNCHES, 0)
@@ -74,7 +76,7 @@ BUILD_LOG = {name: {"seconds": None, "ptxas": ""} for name in SOURCES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES, BIAS_EXPANSIONS):
+    for counts in (LAUNCHES, ROUTES, DTYPES, BIAS_EXPANSIONS):
         for name in counts:
             counts[name] = 0
 
@@ -296,6 +298,7 @@ def launch(q, k, v, bias, lead: int, stats: bool = False, simt=None):
             key_chunk, n_split, ptr, ptr + rows * D * 4, ptr + rows * (D + 1) * 4, stream, *ml)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
+    DTYPES[str(q.dtype).replace("torch.", "")] += 1
     return (o, m, l) if stats else o
 
 
@@ -416,6 +419,7 @@ def launch_bwd(q, k, v, bias, m, l, delta, do, simt=None):
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: cudaError {err}")
+    DTYPES[str(q.dtype).replace("torch.", "")] += 1
     return dq, dk, dv, dbias
 
 

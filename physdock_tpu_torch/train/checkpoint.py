@@ -68,11 +68,12 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, ckpts[-1]) if ckpts else None
 
 
-def restore_train_state(path: str, state: TrainState) -> TrainState:
-    """Load a saved train state into `state`'s tensors (the model's
-    Parameters, the Adam moments and the EMA, on their devices); every
-    name must match."""
-    saved = torch.load(path, map_location="cpu", weights_only=True)
+def restore_train_state(saved, state: TrainState, path: Optional[str] = None) -> TrainState:
+    """Load a saved train state (its path, or the file already read, then
+    named by `path`) into `state`'s tensors (the model's Parameters, the
+    Adam moments and the EMA, on their devices); every name must match."""
+    if isinstance(saved, str):
+        path, saved = saved, torch.load(saved, map_location="cpu", weights_only=True)
 
     def fill(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str):
         if set(dst) != set(src):

@@ -10,7 +10,10 @@
 `make_optimizer` is optax's chain `clip_by_global_norm(10)`,
 `scale_by_adam`, `scale_by_learning_rate(schedule)` in that order, over
 dicts of tensors.  The Adam moments and the EMA are updated in place (one
-copy of each instead of two).
+copy of each instead of two).  Every per-tensor loop is a `torch._foreach_*`
+call: the same elementwise arithmetic over all tensors in a few launches
+(a model has hundreds of parameter tensors, most of them small, so one
+launch per tensor and operation would cost more than the arithmetic).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def stair_exp_warmup_schedule(peak_lr: float = 1.8e-3, warmup_steps: int = 1000,
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree.values()))
+    norms = torch._foreach_norm([g.float() for g in tree.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @dataclasses.dataclass
@@ -69,20 +73,32 @@ class Optimizer:
     def update(self, grads: Tree, state: AdamState):
         """Returns the updates (to add to the params) and the new state;
         `state`'s moments are updated in place."""
+        names = list(grads)
+        g = [grads[n] for n in names]
         g_norm = global_norm(grads)
         if not bool(g_norm < self.global_clip):
-            grads = {n: (g / g_norm) * self.global_clip for n, g in grads.items()}
+            g = torch._foreach_div(g, g_norm)
+            torch._foreach_mul_(g, self.global_clip)
         count = state.count + 1
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
         bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
         step_size = -self.schedule(state.count)
-        updates = {}
-        for n, g in grads.items():
-            mu = state.mu[n].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu = state.nu[n].mul_(self.b2).add_((1.0 - self.b2) * g**2)
-            updates[n] = step_size * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
-        return updates, AdamState(count, state.mu, state.nu)
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1.0 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, g2)
+        m_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(m_hat, denom)
+        torch._foreach_mul_(m_hat, step_size)
+        return dict(zip(names, m_hat)), AdamState(count, state.mu, state.nu)
 
 
 def make_optimizer(peak_lr: float = 1.8e-3, warmup_steps: int = 1000,
@@ -94,11 +110,13 @@ def make_optimizer(peak_lr: float = 1.8e-3, warmup_steps: int = 1000,
 def clip_by_norm(tree: Tree, max_norm: float) -> Tree:
     """Per-system gradient clip (train.sh --per-sample-clip-norm 0.1)."""
     scale = torch.clamp(max_norm / (global_norm(tree) + 1e-9), max=1.0)
-    return {n: g * scale for n, g in tree.items()}
+    return dict(zip(tree, torch._foreach_mul(list(tree.values()), scale)))
 
 
 @torch.no_grad()
 def ema_update(ema: Tree, params: Tree, decay: float = 0.999) -> None:
     """ema <- ema * decay + params * (1 - decay), in place."""
-    for n, e in ema.items():
-        e.mul_(decay).add_(params[n].detach().float(), alpha=1.0 - decay)
+    names = list(ema)
+    torch._foreach_mul_([ema[n] for n in names], decay)
+    torch._foreach_add_([ema[n] for n in names], [params[n].detach().float() for n in names],
+                        alpha=1.0 - decay)

@@ -130,3 +130,46 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
             yield item
     finally:
         done.set()
+
+
+class MixedBatchSampler:
+    """Training data mix (port of `physdock_tpu/train/sampler.py`'s, with
+    the same draws in the same order; feature_loader_plinder.py:1-7
+    header): ~85% receptor+ligand complexes, ~5% protein-only, ~10%
+    ligand-only conformer batches (SMILES chunks standing in for the
+    reference's 374-chunk ligand DB).
+
+    The template split follows the release loader's executed behaviour
+    (`data/feature_loader.py` `_template_feat`), not the plinder header's
+    "0.5 APO / 0.5 HOLO": tune `train_use_template_ratio` to move it."""
+
+    def __init__(
+        self,
+        complex_sampler: WeightedSystemSampler,
+        featurizer: SystemFeaturizer,
+        ligand_smiles: Optional[Sequence[str]] = None,
+        complex_ratio: float = 0.85,
+        protein_only_ratio: float = 0.05,
+        seed: int = 0,
+    ):
+        self.complexes = complex_sampler
+        self.featurizer = featurizer
+        self.ligand_smiles = list(ligand_smiles or [])
+        self.ratios = (complex_ratio, protein_only_ratio)
+        self.rng = np.random.default_rng(seed)
+        self._complex_iter = iter(complex_sampler)
+
+    def sample(self) -> Dict[str, np.ndarray]:
+        r = self.rng.random()
+        complex_r, protein_r = self.ratios
+        if r < complex_r or not self.ligand_smiles:
+            feats, _ = self.featurizer.load(next(self._complex_iter))
+        elif r < complex_r + protein_r:
+            feats, _ = self.featurizer.load(next(self._complex_iter), remove_ligand=True)
+        else:
+            from physdock_tpu_torch.data.smiles import mol_from_smiles
+
+            smi = self.ligand_smiles[self.rng.integers(len(self.ligand_smiles))]
+            mol = mol_from_smiles(smi, seed=int(self.rng.integers(2**31)))
+            feats, _ = self.featurizer.load({}, remove_receptor=True, ligand_mol=mol)
+        return feats

@@ -129,15 +129,14 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
             g = torch.autograd.grad(loss, leaves, allow_unused=True)
             g = {n: torch.zeros_like(p) if gi is None else gi
                  for n, p, gi in zip(names, leaves, g)}
-            for n, gi in clip_by_norm(g, per_replica_clip).items():
-                grads[n].add_(gi.float())
+            clipped = clip_by_norm(g, per_replica_clip)
+            torch._foreach_add_([grads[n] for n in names], [clipped[n].float() for n in names])
             for k, v in logs.items():
                 logs_sum[k] = logs_sum.get(k, 0.0) + v.detach().float()
-        grads = {n: g / n_sys for n, g in grads.items()}
+        torch._foreach_div_(list(grads.values()), n_sys)
         updates, opt_state = optimizer.update(grads, state.opt_state)
         with torch.no_grad():
-            for n, u in updates.items():
-                state.params[n].add_(u.to(state.params[n].dtype))
+            torch._foreach_add_([state.params[n] for n in names], [updates[n] for n in names])
         ema_update(state.ema_params, state.params, ema_decay)
         state = dataclasses.replace(state, step=state.step + 1, opt_state=opt_state)
         return state, {k: float(v) / n_sys for k, v in logs_sum.items()}

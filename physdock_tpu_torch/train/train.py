@@ -32,6 +32,7 @@ from physdock_tpu_torch.cli.common import load_model
 from physdock_tpu_torch.config import PhysDockConfig
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
 from physdock_tpu_torch.infer.pipeline import arrays_to_device, resolve_device
+from physdock_tpu_torch.model.import_weights import is_train_state, read_checkpoint
 from physdock_tpu_torch.train import checkpoint as ckpt_lib
 from physdock_tpu_torch.train.optim import make_optimizer
 from physdock_tpu_torch.train.sampler import WeightedSystemSampler, batch_iterator, prefetch
@@ -61,8 +62,11 @@ def parse_args(argv=None):
     p.add_argument("--alpha_pae", type=float, default=None,
                    help="override LossConfig.alpha_pae (pae weight = alpha_confidence * "
                         "alpha_pae)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute; parameters, gradients, Adam moments and EMA stay fp32")
     p.add_argument("--init_from_ckpt", default=None,
-                   help="a train-state .pt of this trainer, or a JAX .npz parameter artifact")
+                   help="a train-state .pt of this trainer (resumed), or weights to start "
+                        "from: a JAX .npz artifact or a reference params.pt")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked: --device cpu)")
@@ -76,22 +80,26 @@ def main(argv=None):
         args.model_name,
         crop_size=args.crop_size,
         atom_crop_size=args.atom_crop_size,
+        bf16=args.bf16,
         inference_mode=False,
         num_augmentation_sample=args.num_augmentation_sample,
     )
 
     resume = args.init_from_ckpt or ckpt_lib.latest_checkpoint(args.ckpt_dir)
-    npz = resume if resume and resume.endswith(".npz") else None
+    ckpt = read_checkpoint(resume) if resume and not resume.endswith(".npz") else None
+    full = is_train_state(ckpt)
     loss_cfg = cfg.loss
     if args.alpha_pae is not None:
         loss_cfg = dataclasses.replace(loss_cfg, alpha_pae=args.alpha_pae)
-    model = load_model(npz, cfg, seed=args.seed,
-                       with_confidence=args.use_mini_rollout).to(device).train()
+    model = load_model(None if full else resume, cfg, seed=args.seed,
+                       with_confidence=args.use_mini_rollout, ckpt=ckpt).to(device).train()
     optimizer = make_optimizer(args.lr, args.warmup_steps)
     state = init_train_state(model, optimizer)
-    if resume and npz is None:
-        state = ckpt_lib.restore_train_state(resume, state)
+    if full:
+        state = ckpt_lib.restore_train_state(ckpt, state, resume)
         print(f"resumed from {resume} at step {state.step}", flush=True)
+    elif resume:
+        print(f"weights from {resume}; fresh optimizer state at step 0", flush=True)
     train_step = make_train_step(model, optimizer, loss_cfg, ema_decay=args.ema_decay,
                                  sigma_data=cfg.model.sigma_data,
                                  use_mini_rollout=args.use_mini_rollout,
@@ -103,8 +111,8 @@ def main(argv=None):
     batches = prefetch(batch_iterator(sampler, featurizer, args.batch_size, args.crop_size,
                                       args.atom_crop_size))
     noise = torch.Generator().manual_seed(args.seed)
-    summary = {"device": str(device), "steps": [], "logs": [], "step_seconds": [],
-               "wait_seconds": [], "checkpoints": []}
+    summary = {"device": str(device), "start_step": state.step, "steps": [], "logs": [],
+               "step_seconds": [], "wait_seconds": [], "checkpoints": []}
     try:
         while state.step < args.total_steps:
             t0 = time.time()

@@ -22,7 +22,12 @@ kernels against the CPU through their plain versions: its logits at a
 small shape with padded tokens (rel 1e-3 of max|cpu|, rows 3 and 4
 launched), and the mini-rollout loss and gradient on the corrupt-pose
 route (loss rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||, rows 5-6 on
-the tensor-core pair); the rollout route's loss is finite.
+the tensor-core pair); the rollout route's loss is finite.  Training at
+parity with the JAX trainer: a bf16 train step keeps fp32 parameters,
+Adam moments and EMA and launches every kernel in bf16; the trunk with
+two recycles (non-zero recycle tensors) on the card within rel 1e-3 of
+the CPU; a reference release `params.pt` loads on the card to the `.npz`'s
+trunk, bit for bit.
 """
 
 import dataclasses
@@ -551,3 +556,104 @@ def test_mini_rollout_route_on_card_is_finite():
     loss, logs, grads = _mini_rollout_grads("cuda", corrupt=False, steps=3)
     assert math.isfinite(loss) and all(math.isfinite(v) for v in logs.values()), logs
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_overfit",
+                   "ema_params.npz")
+
+
+def _toy_batch(device, seed=4):
+    from physdock_tpu_torch.data.synthetic import make_synthetic_batch
+    from physdock_tpu_torch.model.physdock import prepare_batch
+
+    batch = make_synthetic_batch(n_tokens=40, n_atoms=160, n_msa=4, n_ligand_tokens=8, seed=seed,
+                                 pad_tokens=8, pad_atoms=32)
+    return prepare_batch({k: torch.from_numpy(np.array(v)).to(device) for k, v in batch.items()})
+
+
+def _bf16_step(device):
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = PhysDockConfig.named("toy", num_augmentation_sample=2, bf16=True)
+    model = load_model(NPZ, cfg).to(device)
+    opt = make_optimizer()
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data)
+    batch = {k: v[None] for k, v in _toy_batch(device).items()}
+    state, logs = step(state, batch, torch.Generator().manual_seed(0))
+    return state, logs
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_card_keeps_fp32_state_and_launches_bf16():
+    """One bf16 train step of the toy model on the card: finite losses,
+    fp32 parameters, Adam moments and EMA that moved, every kernel launch
+    in bf16 and rows 5-6 on the tensor-core pair."""
+    _need_cuda()
+    _flash_lib.reset_launches()
+    state, logs = _bf16_step("cuda")
+    dtypes, routes = dict(_flash_lib.DTYPES), dict(_flash_lib.ROUTES)
+    assert all(math.isfinite(v) for v in logs.values()), logs
+    for tree in (state.params, state.opt_state.mu, state.opt_state.nu, state.ema_params):
+        assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                   for t in tree.values())
+    assert sum(float(t.abs().sum()) for t in state.opt_state.mu.values()) > 0
+    assert dtypes["float32"] == 0 and dtypes["bfloat16"] > 0, dtypes
+    assert routes["fwd_lse_tc"] > 0 and routes["bwd_tc"] > 0, routes
+    assert routes["fwd_lse_simt"] == 0 and routes["bwd_simt"] == 0, routes
+
+
+
+@pytest.mark.gpu
+def test_recycled_trunk_on_card_matches_cpu():
+    """The toy trunk with two recycles and non-zero recycle projections, on
+    the card through the kernels against the CPU through the plain
+    versions: s and z within rel 1e-3 of max|cpu|."""
+    _need_cuda()
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.train.checkpoint import load_params_npz
+
+    model = PhysDock(dataclasses.replace(PhysDockConfig.named("toy").model, num_recycles=2))
+    sd = load_params_npz(NPZ)
+    rng = np.random.default_rng(21)
+    for n, t in model.state_dict().items():
+        if ".recycle_" in n:
+            a = (1.0 + 0.2 * rng.normal(size=t.shape) if "norm" in n
+                 else 0.05 * rng.normal(size=t.shape))
+            sd[n] = torch.from_numpy(a.astype(np.float32))
+    model.load_state_dict(sd)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.no_grad():
+            _, _, s, z = model.to(dev).eval().conditioning(_toy_batch(dev))
+        outs[dev] = (s.float().cpu(), z.float().cpu())
+    for name, o, r in zip(("s", "z"), outs["cuda"], outs["cpu"]):
+        err = float((o - r).abs().max() / r.abs().max())
+        assert err <= 1e-3, (name, err)
+
+
+@pytest.mark.gpu
+def test_reference_pt_docks_on_card_as_the_npz(tmp_path):
+    """The toy weights written as a reference release `params.pt` load on
+    the card to the same weights as the `.npz`, and give the same trunk."""
+    _need_cuda()
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.train.checkpoint import load_params_npz
+
+    sd = load_params_npz(NPZ)
+    path = str(tmp_path / "params.pt")
+    torch.save({"model." + k.replace("time_embedder.linear_", "time_embedder.timestep_embedder."
+                                     "linear_"): v for k, v in sd.items()}, path)
+    cfg = PhysDockConfig.named("toy")
+    outs = []
+    for p in (NPZ, path):
+        model = load_model(p, cfg).cuda().eval()
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.conditioning(_toy_batch("cuda"))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

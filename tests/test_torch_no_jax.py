@@ -1,8 +1,10 @@
 """The PyTorch port must run where JAX is not installed.
 
   * a static scan: no module of `physdock_tpu_torch/` (the confidence
-    head and the pose corruption included), and not `chip_smoke.py`,
-    imports jax, jaxlib, flax, optax or physdock_tpu;
+    head, the pose corruption, the reference checkpoint import and the
+    metrics log included), and not `chip_smoke.py` or the train-to-dock
+    gate `scripts/torch_overfit_gate.py`, imports jax, jaxlib, flax, optax
+    or physdock_tpu;
   * a subprocess whose `sys.meta_path` makes those imports raise docks two
     demo systems through `physdock_tpu_torch.cli.redocking.main` on the CPU
     (tiny crop, 2 steps; `dock_many` with the inline featurizer), then the
@@ -34,7 +36,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "physdock_tpu")
 def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "physdock_tpu_torch", "**", "*.py"),
                              recursive=True))
-    return files + [os.path.join(REPO, "chip_smoke.py")]
+    return files + [os.path.join(REPO, "chip_smoke.py"),
+                    os.path.join(REPO, "scripts", "torch_overfit_gate.py")]
 
 
 def test_port_sources_import_nothing_of_jax():
@@ -58,7 +61,9 @@ def test_port_sources_import_nothing_of_jax():
             "physdock_tpu_torch/data/feat_worker.py", "physdock_tpu_torch/infer/relax.py",
             "physdock_tpu_torch/data/charges.py", "physdock_tpu_torch/data/system.py",
             "physdock_tpu_torch/data/parsers.py",
-            "physdock_tpu_torch/cli/prepare_system.py"} <= scanned
+            "physdock_tpu_torch/cli/prepare_system.py",
+            "physdock_tpu_torch/model/import_weights.py", "physdock_tpu_torch/train/metrics.py",
+            "scripts/torch_overfit_gate.py"} <= scanned
     assert not offenders, offenders
 
 

@@ -167,14 +167,18 @@ def test_forward_draws_its_noise_on_the_cpu_generator(tiny_batch):
 
 
 def test_loss_config_matches_jax_and_recycles_still_raise():
+    """The loss config equals the JAX one; a recycling model (ported since,
+    tests/test_torch_recycle.py) still raises on weights without its
+    recycle tensors instead of keeping their zero init."""
     import dataclasses
 
     cfg = PhysDockConfig.named("medium", inference_mode=False, num_augmentation_sample=7)
     ref = JaxConfig.named("medium", inference_mode=False, num_augmentation_sample=7)
     assert dataclasses.asdict(cfg.loss) == dataclasses.asdict(ref.loss)
     assert cfg.model.num_augmentation_sample == 7 and not cfg.inference_mode
-    with pytest.raises(NotImplementedError, match="num_recycles"):
-        PhysDock(dataclasses.replace(cfg.model, num_recycles=1))
+    toy = PhysDockConfig.named("toy").model
+    with pytest.raises(KeyError, match="recycle_linear_s"):
+        load_jax_params(PhysDock(dataclasses.replace(toy, num_recycles=1)), NPZ)
 
 
 def test_schedule_matches_jax():
