@@ -49,6 +49,16 @@ exits non-zero (no phase is caught):
                  attention H 16, S 128; atoms H 4, S 832), fp32 and bf16,
                  against their plain versions at phase 3's limits, with
                  kernel, SIMT, plain and SDPA times
+  4c. tp kernels -- rows 1-6 at the row-shard shapes of a tp=2 rank (this
+                 rank's S/2 query rows of q and of the bias against all
+                 S_k keys): the tp dock's atom DiT (row 1, S_q 1024 of
+                 2048), token DiT and MSA rows (row 2), triangle ending
+                 node (row 3, and a ragged shard of 100 rows of 200),
+                 Pairformer single attention (row 4), and the tp train
+                 step's atom DiT and triangle sites (rows 5-6, with the
+                 ragged shard), fp32 and bf16, each against its plain
+                 version at phase 3's and phase 4's limits, with kernel,
+                 SIMT, plain and SDPA times and the bound at S_q x S_k
   5. model    -- the toy model's conditioning, DiT bias cache and denoise
                  at the main dock's shapes (256 tokens, 2048 atoms, 2
                  samples), on the card through the kernels and on the CPU
@@ -142,6 +152,31 @@ exits non-zero (no phase is caught):
                  losses logged and finite, the head's parameters and EMA
                  moved, and the EMA, head included, loads into a fresh
                  model with the head with every key used once
+ 9a. dp       -- the train CLI (toy, crop 128/1024, 8 samples, batch 2, 2
+                 steps) without a process group and with --coordinator at
+                 NCCL world size 1: step-1 loss terms within rel 1e-6, step
+                 2's within 1e-4, the parameters' change within 1e-3 by
+                 global norm (the backward's atomic adds differ run to
+                 run); then the toy step (committed weights, the CPU
+                 tests' parity optimizer) on 2 demo systems at crop
+                 128/1024 as two gloo ranks on the card, one system each,
+                 against the single-process step: the change of params,
+                 Adam moments and EMA within rel 1e-4 by global norm, the
+                 logs within 1e-4, rows 2 and 4-6 launched on each rank,
+                 rows 5-6 on the tensor-core pair
+ 9b. tp       -- two gloo ranks on the card with the pair rows sharded
+                 (tp=2): the toy trunk at crop 256/2048 on 5SAK (s and z
+                 within rel 1e-4 of tp 1, each rank's peak memory above
+                 the weights beside tp 1's, the row-sharded attention
+                 taken), the toy train step at crop 128/1024 (its change
+                 within rel 1e-4 of tp 1 by global norm, rows 2 and 4-6
+                 launched, 5-6 on the tensor-core pair), and the main
+                 dock's system and settings through
+                 DockingPipeline(SamplerSettings(tp=2)), featurized in
+                 process (launch counters reset before and read after;
+                 rows 1-4 launched; top-1 within 0.5 A of the CPU
+                 reading; both ranks' poses equal; rank 0 alone writes),
+                 each beside its tp=1 run in this process
  10. lockstep -- two ligand-systems of one shape (demo receptor 6kzd, two
                  demo SMILES, crop 256/2048, 20 poses each, guided, with a
                  different adaptive factor each) for 4 steps through the
@@ -167,15 +202,18 @@ exits non-zero (no phase is caught):
                  5-6, and for rows 1-4 those of both screens and of the
                  dock_many and batched redocks; per row also
                  its launches in the confidence dock, in its head alone
-                 and per mini-rollout train step, and rows 3-4 their times
-                 at the head's sites), the whole run's wall,
+                 and per mini-rollout train step, in the tp dock, the tp
+                 train step and the dp step (rank 0), rows 3-4 their times
+                 at the head's sites, and every row its tp sites), the
+                 whole run's wall,
                  the card line, and last the {"ok": true, ...} line
 
-It imports nothing of JAX, starts no process other than nvcc, nvidia-smi
-and the featurizer worker of the redocking CLI's multi-system runs
-(stopped when each run ends; the train run's prefetch is a thread,
-stopped when it ends), and exits non-zero without a result when CUDA is
-absent or the port's package is not beside it.
+It imports nothing of JAX, starts no process other than nvcc, nvidia-smi,
+the featurizer worker of the redocking CLI's multi-system runs (stopped
+when each run ends; the train run's prefetch is a thread, stopped when
+it ends) and the two ranks of the dp and tp phases (joined before the
+phase reads their results), and exits non-zero without a result when
+CUDA is absent or the port's package is not beside it.
 """
 
 from __future__ import annotations
@@ -381,7 +419,17 @@ def time_graph_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def run_kernel_case(torch, name, spec, dtype, seed=None):
+def query_rows(x, layout, lo, hi):
+    """Rows lo..hi-1 of the query axis of an input in a call site's layout
+    (what a tp rank holds of q, or of a bias with layout "bias")."""
+    axis = {"folded": 1, "split": 2, "heads": 2, "heads_single": 1, "bias": -2}[layout]
+    return x.narrow(axis if axis >= 0 else x.dim() + axis, lo, hi - lo)
+
+
+def run_kernel_case(torch, name, spec, dtype, seed=None, rows=None):
+    """One forward wrapper at a call site against its plain version, with
+    the timings; `rows` (lo, hi) keeps those query rows of q and of the
+    bias, as a tp rank calls the kernel (S_q = hi - lo against all S_k)."""
     import torch.nn.functional as F
 
     from physdock_tpu_torch.ops import _flash_lib
@@ -396,6 +444,10 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     q, k, v, bias = make_inputs(torch, spec, dtype, seed=len(name) if seed is None else seed)
     H = spec["H"]
     G = spec.get("systems", 1)
+    S_q = spec["S"] if rows is None else rows[1] - rows[0]
+    if rows is not None:
+        q = query_rows(q, spec["layout"], *rows)
+        bias = None if bias is None else query_rows(bias, "bias", *rows)
     if spec["layout"] == "folded":
         wrapper = flash_sdpa_folded_v3 if name == "flash_sdpa_folded_v3" else flash_sdpa_folded
         kern = lambda: wrapper(q, k, v, bias, H)  # noqa: E731
@@ -420,7 +472,7 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     # the SIMT kernel on the same inputs: the forward with stats
     B, S, D = spec["B"], spec["S"], spec["D"]
     qf, kf, vf = (x.reshape(-1, H, x.shape[-2], D) for x in (qs, ks, vs))
-    b3, lead = (None, 0) if bias is None else (bias.reshape(-1, S, S), G * H)
+    b3, lead = (None, 0) if bias is None else (bias.reshape(-1, S_q, S).contiguous(), G * H)
     before = lambda: _flash_lib.launch(qf, kf, vf, b3, lead, stats=True, simt=True)  # noqa: E731
     _flash_lib.reset_launches()
     before()
@@ -436,10 +488,10 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
     # q, k, v, o, bias once each; the products on the tensor cores; one
     # exponential per logit
     bounds = {
-        "bytes": (4 * B * H * S * D + (0 if bias is None else G * H * S * S)) * isz
+        "bytes": (2 * B * H * (S_q + S) * D + (0 if bias is None else G * H * S_q * S)) * isz
         / H100_BYTES_PER_S * 1e3,
-        "operations": 4 * B * H * S * S * D / TC_PEAK_FLOPS[dname] * 1e3,
-        "exp": B * H * S * S / EXP_PER_S * 1e3,
+        "operations": 4 * B * H * S_q * S * D / TC_PEAK_FLOPS[dname] * 1e3,
+        "exp": B * H * S_q * S / EXP_PER_S * 1e3,
     }
     bound_by = max(bounds, key=bounds.get)
     row = {
@@ -447,7 +499,7 @@ def run_kernel_case(torch, name, spec, dtype, seed=None):
         "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bounds[bound_by], "bound_by": bound_by,
         "shape": {k: spec[k] for k in ("B", "H", "S", "D")}, "layout": spec["layout"],
-        "lead": lead,
+        "lead": lead, "S_q": S_q,
     }
     log(f"  {json.dumps(row)}")
     if not finite or err > TOL[dname]:
@@ -524,10 +576,11 @@ def _rel(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
-def run_train_kernel_case(torch, site, spec, dtype):
+def run_train_kernel_case(torch, site, spec, dtype, rows=None):
     """Rows 5 and 6 at one call site against their plain versions, with
     the memory-efficient SDPA as the yardstick and the SIMT pair at the
-    same inputs as `before_ms`."""
+    same inputs as `before_ms`; `rows` (lo, hi) keeps those query rows of
+    q and of the bias, as a tp rank calls them."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -541,10 +594,13 @@ def run_train_kernel_case(torch, site, spec, dtype):
     from physdock_tpu_torch.ops.flash_attention_folded import split_view
 
     B, H, S, D = spec["B"], spec["H"], spec["S"], spec["D"]
+    S_q = S if rows is None else rows[1] - rows[0]
     q, k, v, bias = make_inputs(torch, spec, dtype, seed=S + B)
+    if rows is not None:
+        q, bias = query_rows(q, "folded", *rows), query_rows(bias, "bias", *rows).contiguous()
     q, k, v = (split_view(x, H) for x in (q, k, v))  # [B, H, S, D] views, folded strides
     g = torch.Generator(device="cuda").manual_seed(B)
-    do = split_view(torch.randn((B, S, H * D), generator=g, device="cuda").to(dtype), H)
+    do = split_view(torch.randn((B, S_q, H * D), generator=g, device="cuda").to(dtype), H)
 
     _flash_lib.reset_launches()
     o, m, l = flash_fwd_lse(q, k, v, bias)
@@ -584,7 +640,7 @@ def run_train_kernel_case(torch, site, spec, dtype):
     lb = bias.to(dtype).detach().requires_grad_(True)
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         run = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            lq, lk, lv, attn_mask=lb.expand(B, H, S, S))
+            lq, lk, lv, attn_mask=lb.expand(B, H, S_q, S))
         with torch.no_grad():
             t["sdpa_fwd"] = time_ms(torch, run, 5 if big else 20)
         out = run()
@@ -595,32 +651,33 @@ def run_train_kernel_case(torch, site, spec, dtype):
     del out
 
     isz = torch.tensor([], dtype=dtype).element_size()
-    bhsd = B * H * S * D
-    rows = {}
+    bq, bk = B * H * S_q * D, B * H * S * D  # one query-side, one key-side tensor
+    out = {}
     for name, nbytes, flops, ms, before_ms, plain_ms, lib_ms, err, abs_err in (
         # q, k, v, bias read; o written; m, l fp32 written; two products
-        ("flash_fwd_lse", (4 * bhsd + H * S * S) * isz + 2 * B * H * S * 4,
-         4 * B * H * S * S * D, t["fwd"], t["simt_fwd"], t["plain_fwd"], t["sdpa_fwd"],
+        ("flash_fwd_lse", (2 * bq + 2 * bk + H * S_q * S) * isz + 2 * B * H * S_q * 4,
+         4 * B * H * S_q * S * D, t["fwd"], t["simt_fwd"], t["plain_fwd"], t["sdpa_fwd"],
          max(errs[n] for n in ("o", "m", "l")), abs_fwd),
         # q, k, v, o, do, bias read, m, l read; dq, dk, dv, dbias (fp32)
         # written; five products (s recomputed, dp, dv, dq, dk)
-        ("flash_bwd", (8 * bhsd + H * S * S) * isz + 2 * B * H * S * 4 + H * S * S * 4,
-         10 * B * H * S * S * D, t["bwd"], t["simt_bwd"], t["plain_bwd"], t["sdpa_bwd"],
+        ("flash_bwd", (4 * bq + 4 * bk + H * S_q * S) * isz + 2 * B * H * S_q * 4
+         + H * S_q * S * 4,
+         10 * B * H * S_q * S * D, t["bwd"], t["simt_bwd"], t["plain_bwd"], t["sdpa_bwd"],
          max(errs[n] for n in ("dq", "dk", "dv", "dbias")), abs_bwd),
     ):
         # the products at the tensor-core peak, one exp per logit
         bounds = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
                   "operations": flops / TC_PEAK_FLOPS[dname] * 1e3,
-                  "exp": B * H * S * S / EXP_PER_S * 1e3}
+                  "exp": B * H * S_q * S / EXP_PER_S * 1e3}
         bound_by = max(bounds, key=bounds.get)
-        rows[name] = {
+        out[name] = {
             "name": name, "site": site, "dtype": dname, "max_rel_err": err, "max_abs_err": abs_err,
             "ms": ms, "before_ms": before_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bound_ms": bounds[bound_by], "bound_by": bound_by, "S_q": S_q,
         }
     log(f"  {site} {dname} errs {json.dumps(errs)} times {json.dumps(t)} finite {finite} "
         f"routes {json.dumps(routes)}")
-    for r in rows.values():
+    for r in out.values():
         log(f"  {json.dumps(r)}")
     bad = {n: e for n, e in errs.items() if not e <= TOL[dname]}
     if bad or not finite:
@@ -628,7 +685,7 @@ def run_train_kernel_case(torch, site, spec, dtype):
              f"(finite={finite})")
     if routes["fwd_lse_tc"] != 1 or routes["bwd_tc"] != 1:
         fail(f"training kernels at {site} {dname}: not on the tensor-core pair: {routes}")
-    return rows
+    return out
 
 
 def phase_train_kernels(torch):
@@ -1708,6 +1765,330 @@ def phase_train(torch, work, mini=False, bf16=False):
     return per_step, sum(sec[1:]) / len(sec[1:]), peak
 
 
+# ------------------------------------------------------------ dp and tp
+
+TP = 2  # ranks of the two-rank phases, sharing the one card over gloo
+# the kernels at the row-shard shapes a tp=2 rank gives them (S_q = S/2
+# query rows against all S_k keys): the tp dock at crop 256/2048 (rows
+# 1-4) and the tp train step (rows 5-6), and ragged shards (S 200: 100
+# query rows, no multiple of the kernels' 64-row tiles)
+TP_FWD_SITES = [
+    ("flash_sdpa_folded_v3", "tp_atom_dit", dict(layout="folded", B=20, H=4, S=2048, D=32),
+     (0, 1024)),
+    ("flash_sdpa_grouped", "tp_token_dit", dict(layout="heads", B=20, H=16, S=256, D=32),
+     (0, 128)),
+    ("flash_sdpa_grouped", "tp_msa_row", dict(layout="heads", B=2, H=8, S=256, D=32), (128, 256)),
+    ("flash_sdpa_folded", "tp_triangle_end", dict(layout="folded", B=256, H=4, S=256, D=32),
+     (0, 128)),
+    ("flash_sdpa_folded", "tp_triangle_end_ragged", dict(layout="folded", B=200, H=4, S=200,
+                                                        D=32), (100, 200)),
+    ("flash_sdpa", "tp_pair_single", dict(layout="heads_single", B=1, H=16, S=256, D=32),
+     (0, 128)),
+]
+TP_TRAIN_SITES = {
+    "tp_atom_dit": (dict(layout="folded", B=48, H=4, S=2048, D=32), (0, 1024)),
+    "tp_triangle": (dict(layout="folded", B=256, H=4, S=256, D=32), (0, 128)),
+    "tp_triangle_ragged": (dict(layout="folded", B=200, H=4, S=200, D=32), (100, 200)),
+}
+DP_REL = 1e-4  # the dp=2 step's change of the state against dp=1's, by global norm
+TP_REL = 1e-4  # the tp=2 trunk's s and z, and the tp=2 step's change, against tp=1
+PARITY_OPT = dict(peak_lr=1e3, warmup_steps=1, eps=1.0)  # tests/test_torch_train.py
+
+
+def _site_fields(rows, name, site):
+    """A kernel's numbers at one site, fp32 and (prefixed) bf16."""
+    return {pre + f: rows[(name, site, dt)][f]
+            for dt, pre in (("float32", ""), ("bfloat16", "bf16_"))
+            for f in ("max_abs_err", "ms", "before_ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms", "S_q")}
+
+
+def phase_tp_kernels(torch):
+    """Rows 1-6 at the tp sites, each against its plain version, timed."""
+    rows = {}
+    for name, site, spec, shard in TP_FWD_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"  {name} at the tp site {site} (query rows {shard[0]}..{shard[1] - 1} of "
+                f"{spec['S']}):")
+            r = run_kernel_case(torch, name, spec, dtype, seed=spec["B"] + spec["S"] + 3,
+                                rows=shard)
+            rows[(name, site, r["dtype"])] = r
+    for site, (spec, shard) in TP_TRAIN_SITES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, r in run_train_kernel_case(torch, site, spec, dtype, rows=shard).items():
+                rows[(name, site, r["dtype"])] = r
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _card_rank_setup():
+    """A spawned rank's card and numerics: the one card, TF32 off."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def _toy_step(torch, batch, mesh, n_aug):
+    """One toy train step (committed weights, the parity optimizer of the
+    CPU tests) on this rank's systems; the change of the train state, the
+    logs, the launches and the peak memory."""
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.infer.pipeline import arrays_to_device
+    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.model.weights import load_jax_params
+    from physdock_tpu_torch.ops import _flash_lib
+    from physdock_tpu_torch.train import optim
+    from physdock_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = PhysDockConfig.named("toy", inference_mode=False, num_augmentation_sample=n_aug)
+    model = PhysDock(cfg.model)
+    load_jax_params(model, PARAMS)
+    model = model.to("cuda")
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = optim.make_optimizer(**PARITY_OPT)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, cfg.loss, ema_decay=0.5, sigma_data=cfg.model.sigma_data,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _flash_lib.reset_launches()
+    t0 = time.time()
+    state, logs = step(state, arrays_to_device(batch, "cuda"), torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    change = {q: {n: (t[n].detach().float() - (init[n] if q in ("params", "ema") else 0)).cpu()
+                  for n in init}
+              for q, t in (("params", state.params), ("mu", state.opt_state.mu),
+                           ("nu", state.opt_state.nu), ("ema", state.ema_params))}
+    return {"change": change, "logs": logs, "launches": dict(_flash_lib.LAUNCHES),
+            "routes": dict(_flash_lib.ROUTES), "peak": torch.cuda.max_memory_allocated(),
+            "seconds": seconds}
+
+
+def _global_rel(got, ref):
+    num = math.sqrt(sum(float(((got[n] - r).double() ** 2).sum()) for n, r in ref.items()))
+    den = math.sqrt(sum(float((r.double() ** 2).sum()) for r in ref.values()))
+    return num / den
+
+
+def dp_rank(rank, world, path):
+    """The dp phase's rank: its systems of the global batch, one step."""
+    from physdock_tpu_torch.parallel.mesh import make_mesh
+
+    torch = _card_rank_setup()
+    blob = torch.load(path, weights_only=False)
+    n_local = len(blob["batch"]["x_gt"]) // world
+    local = {k: v[rank * n_local:(rank + 1) * n_local] for k, v in blob["batch"].items()}
+    return _toy_step(torch, local, make_mesh(dp=world), blob["n_aug"])
+
+
+def phase_dp(torch, work):
+    """NCCL at world size 1 through the train CLI, and the dp=2 toy step of
+    two gloo ranks on the card against the single-process step."""
+    import numpy as np
+
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.parallel import mesh as mesh_lib
+    from physdock_tpu_torch.parallel.launch import run_ranks
+    from physdock_tpu_torch.train import train
+
+    data = os.path.join(work, "train_data")  # phase_train's dataset of the 4 systems
+    flags = ["--dataset_dir", data, "--model_name", "toy", "--crop_size", "128",
+             "--atom_crop_size", "1024", "--num_augmentation_sample", "8", "--batch_size", "2",
+             "--total_steps", "2", "--save_every", "2", "--seed", "0", "--device", "cuda"]
+    alone = train.main(flags + ["-o", os.path.join(work, "dp_alone")])
+    nccl = train.main(flags + ["-o", os.path.join(work, "dp_nccl"), "--coordinator",
+                               "file://" + os.path.join(work, "nccl_rendezvous"),
+                               "--num_processes", "1", "--process_id", "0"])
+    if mesh_lib.distributed():
+        fail("dp: the train CLI left its process group open")
+    # step 1's forward is the same computation; the backward's atomic adds
+    # (index_select's gradient) make later numbers differ run to run
+    init = dict(load_model(None, PhysDockConfig.named("toy"), seed=0).named_parameters())
+    moved = {name: {n: (res["state"].params[n].detach().cpu() - init[n].detach())
+                    for n in init} for name, res in (("alone", alone), ("nccl", nccl))}
+    rel = {"step1_logs": max(abs(nccl["logs"][0][k] - v) / abs(v)
+                             for k, v in alone["logs"][0].items() if v),
+           "step2_logs": max(abs(nccl["logs"][1][k] - v) / abs(v)
+                             for k, v in alone["logs"][1].items() if v),
+           "param_change": _global_rel(moved["nccl"], moved["alone"])}
+    log(f"[dp] train CLI, toy crop 128/1024, batch 2, 2 steps: alone {alone['logs']} "
+        f"({alone['step_seconds']} s); NCCL world 1 {nccl['logs']} ({nccl['step_seconds']} s); "
+        f"rel {json.dumps(rel)}")
+    if rel["step1_logs"] > 1e-6 or rel["step2_logs"] > DP_REL or rel["param_change"] > 1e-3:
+        fail(f"dp: the train CLI with NCCL at world size 1 differs from the run without: {rel}")
+
+    feats = [featurize_train(os.path.join(SYSTEMS, f), 128, 1024, seed=i)
+             for i, f in enumerate(("5SAK_ZRY_A_1.pkl.gz", "5SD5_HWI_A_1.pkl.gz"))]
+    batch = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+    path = os.path.join(work, "dp_blob.pt")
+    torch.save({"batch": batch, "n_aug": 4}, path)
+    one = _toy_step(torch, batch, None, 4)
+    ranks = run_ranks(dp_rank, TP, args=(path,), rdv_dir=os.path.join(work, "dp_rdv"),
+                      threads=2)
+    for r, res in enumerate(ranks):
+        rel = {q: _global_rel(res["change"][q], one["change"][q]) for q in one["change"]}
+        log(f"[dp] rank {r} of 2 (gloo, one card): logs {res['logs']}; rel to dp 1 "
+            f"{json.dumps(rel)}; {res['seconds']:.3f} s; launches {json.dumps(res['launches'])}")
+        if max(rel.values()) > DP_REL or any(
+                abs(res["logs"][k] - v) > DP_REL * abs(v) for k, v in one["logs"].items()):
+            fail(f"dp: rank {r}'s step differs from the single-process step: {rel}")
+        for n in ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa"):
+            if res["launches"][n] <= 0:
+                fail(f"dp: rank {r} never launched {n}")
+        check_tc_routes(f"dp rank {r}", res["routes"])
+    log(f"[dp] single-process step {one['logs']} ({one['seconds']:.3f} s)")
+    return ranks[0]["launches"]
+
+
+def _tp_dock(torch, out, tp):
+    """The main dock's system and settings through DockingPipeline with
+    SamplerSettings(tp=tp), featurized in process."""
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
+    from physdock_tpu_torch.infer.pipeline import DockingPipeline, SamplerSettings
+    from physdock_tpu_torch.ops import _flash_lib
+
+    feats = os.path.join(REPO, "demo", "redocking", "features")
+    cfg = PhysDockConfig.named("toy", crop_size=256, atom_crop_size=2048,
+                               infer_pocket_cutoff=6.0, infer_use_pocket=True,
+                               infer_use_key_res=True)
+    featurizer = SystemFeaturizer(
+        cfg.data, msa_features_dir=os.path.join(feats, "msa_features"),
+        uniprot_msa_features_dir=os.path.join(feats, "uniprot_msa_features"),
+        inference_mode=True, seed=0)
+    settings = SamplerSettings(max_samples=40, num_samples_per_round=20, max_rounds=2, steps=40,
+                               enable_physics_correction=True, num_confs=64,
+                               enable_ranking=True, seed=0, tp=tp)
+    pipe = DockingPipeline(cfg, load_model(PARAMS, cfg), featurizer, settings, device="cuda")
+    torch.cuda.synchronize()
+    _flash_lib.reset_launches()
+    t0 = time.time()
+    r = pipe.dock(os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz"), out)
+    torch.cuda.synchronize()
+    return {"top5_rmsd": r["top5_rmsd"], "all_rmsd": r["all_rmsd"], "rounds": r["rounds"],
+            "wall": time.time() - t0, "launches": dict(_flash_lib.LAUNCHES),
+            "wrote": sorted(os.listdir(out)) if os.path.isdir(out) else []}
+
+
+def _trunk(torch, batch):
+    """The toy trunk's (s, z) at the main dock's shapes, its peak memory
+    and launches."""
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.infer.pipeline import arrays_to_device
+    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.model.weights import load_jax_params
+    from physdock_tpu_torch.ops import _flash_lib
+
+    model = PhysDock(PhysDockConfig.named("toy").model)
+    load_jax_params(model, PARAMS)
+    model = model.to("cuda").eval()
+    b = arrays_to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _flash_lib.reset_launches()
+    with torch.no_grad():
+        _, _, s, z = model.conditioning(b)
+    torch.cuda.synchronize()
+    return {"s": s.float().cpu(), "z": z.float().cpu(), "launches": dict(_flash_lib.LAUNCHES),
+            "peak_above_weights": torch.cuda.max_memory_allocated() - base}
+
+
+def tp_rank(rank, world, path, work):
+    """The tp phase's rank: the trunk, one train step and the dock, each
+    with the pair rows sharded over the world."""
+    from physdock_tpu_torch.ops import attention
+    from physdock_tpu_torch.parallel.mesh import make_mesh
+    from physdock_tpu_torch.parallel.tp import use_tp
+
+    torch = _card_rank_setup()
+    blob = torch.load(path, weights_only=False)
+    mesh = make_mesh(tp=world)
+    attention.TP_FLASH_CALLS[0] = 0
+    with use_tp(mesh):
+        trunk = _trunk(torch, blob["trunk_batch"])
+    trunk["tp_flash_calls"] = attention.TP_FLASH_CALLS[0]
+    step = _toy_step(torch, blob["train_batch"], mesh, 4)
+    out = os.path.join(work, f"tp_dock_rank{rank}")
+    dock_res = _tp_dock(torch, out, world)
+    return {"trunk": trunk, "step": step, "dock": dock_res}
+
+
+def phase_tp(torch, work):
+    """Two gloo ranks on the card with the pair rows sharded (tp=2): the
+    toy trunk's s and z at crop 256/2048, one toy train step, and the main
+    dock through SamplerSettings(tp=2), each against tp=1."""
+    import numpy as np
+
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
+    from physdock_tpu_torch.parallel.launch import run_ranks
+
+    cfg = PhysDockConfig.named("toy", crop_size=256, atom_crop_size=2048,
+                               infer_pocket_cutoff=6.0, infer_use_pocket=True,
+                               infer_use_key_res=True)
+    feats_dir = os.path.join(REPO, "demo", "redocking", "features")
+    trunk_batch, _ = SystemFeaturizer(
+        cfg.data, msa_features_dir=os.path.join(feats_dir, "msa_features"),
+        uniprot_msa_features_dir=os.path.join(feats_dir, "uniprot_msa_features"),
+        inference_mode=True, seed=0).load(os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz"))
+    trunk_batch = {k: np.asarray(v) for k, v in trunk_batch.items()}
+    train_feats = featurize_train(os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz"), 128, 1024)
+    train_batch = {k: np.asarray(v)[None] for k, v in train_feats.items()}
+    path = os.path.join(work, "tp_blob.pt")
+    torch.save({"trunk_batch": trunk_batch, "train_batch": train_batch}, path)
+
+    one_trunk = _trunk(torch, trunk_batch)
+    one_step = _toy_step(torch, train_batch, None, 4)
+    one_dock = _tp_dock(torch, os.path.join(work, "tp_dock_one"), 1)
+    ranks = run_ranks(tp_rank, TP, args=(path, work), rdv_dir=os.path.join(work, "tp_rdv"),
+                      threads=2)
+    for r, res in enumerate(ranks):
+        tr, st, dk = res["trunk"], res["step"], res["dock"]
+        rel = {k: float((tr[k] - one_trunk[k]).abs().max() / one_trunk[k].abs().max())
+               for k in ("s", "z")}
+        step_rel = {q: _global_rel(st["change"][q], one_step["change"][q])
+                    for q in one_step["change"]}
+        log(f"[tp] rank {r} of 2 (gloo, one card): trunk s/z rel to tp 1 {json.dumps(rel)}; "
+            f"peak above the weights {tr['peak_above_weights']} B (tp 1: "
+            f"{one_trunk['peak_above_weights']} B); row-sharded attention calls "
+            f"{tr['tp_flash_calls']}; trunk launches {json.dumps(tr['launches'])}")
+        log(f"[tp] rank {r} train step: rel to tp 1 {json.dumps(step_rel)}; logs {st['logs']} "
+            f"(tp 1: {one_step['logs']}); {st['seconds']:.3f} s (tp 1: "
+            f"{one_step['seconds']:.3f} s); peak {st['peak']} B (tp 1: {one_step['peak']} B); "
+            f"launches {json.dumps(st['launches'])}")
+        log(f"[tp] rank {r} dock (SamplerSettings(tp=2)): top5 {dk['top5_rmsd']} (tp 1: "
+            f"{one_dock['top5_rmsd']}); {dk['wall']:.2f} s (tp 1: {one_dock['wall']:.2f} s); "
+            f"launches {json.dumps(dk['launches'])}; wrote {len(dk['wrote'])} files")
+        if max(rel.values()) > TP_REL or max(step_rel.values()) > TP_REL:
+            fail(f"tp: rank {r} differs from tp 1: trunk {rel}, step {step_rel}")
+        if tr["tp_flash_calls"] <= 0:
+            fail(f"tp: rank {r}'s trunk never took the row-sharded attention route")
+        check_tc_routes(f"tp rank {r} train step", st["routes"])
+        for n in ("flash_fwd_lse", "flash_bwd", "flash_sdpa_grouped", "flash_sdpa"):
+            if st["launches"][n] <= 0:
+                fail(f"tp: rank {r}'s train step never launched {n}")
+        missing = [k for k, _, _ in kernel_cases() if dk["launches"][k] <= 0]
+        if missing:
+            fail(f"tp: rank {r}'s dock never launched {missing}")
+        top = dk["top5_rmsd"][0]
+        if not (abs(top - MAIN_RMSD_REF) <= MAIN_RMSD_TOL
+                and all(math.isfinite(x) for x in dk["all_rmsd"])):
+            fail(f"tp: rank {r}'s top-ranked RMSD {top} A is not within {MAIN_RMSD_TOL} A of "
+                 f"{MAIN_RMSD_REF} A")
+        if (r == 0) != bool(dk["wrote"]):
+            fail(f"tp: rank {r} wrote {dk['wrote']}: rank 0 alone writes")
+    if ranks[0]["dock"]["all_rmsd"] != ranks[1]["dock"]["all_rmsd"]:
+        fail("tp: the two ranks' docks differ")
+    return ranks[0], one_trunk, one_step, one_dock
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1756,6 +2137,10 @@ def main():
     conf_rows = phase_conf_kernels(torch)
     log(f"[conf_kernels] rows 3 and 4 at the confidence head's {len(CONF_SITES)} dock sites, "
         f"x 2 dtypes, match their plain versions ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    tp_rows = phase_tp_kernels(torch)
+    log(f"[tp_kernels] rows 1-4 at {len(TP_FWD_SITES)} and rows 5-6 at {len(TP_TRAIN_SITES)} "
+        f"row-shard sites, x 2 dtypes, match their plain versions ({time.time() - t0:.2f} s)")
     t0 = time.time()
     phase_model(torch)
     log(f"[model] card matches the CPU at crop 256/2048 ({time.time() - t0:.2f} s)")
@@ -1833,6 +2218,15 @@ def main():
     log(f"[train mini-rollout] done ({time.time() - t0:.2f} s)")
 
     t0 = time.time()
+    dp_launches = phase_dp(torch, work)
+    log(f"[dp] done ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    tp_rank0, _, _, _ = phase_tp(torch, work)
+    tp_train_launches = tp_rank0["step"]["launches"]
+    tp_dock_launches = tp_rank0["dock"]["launches"]
+    log(f"[tp] done ({time.time() - t0:.2f} s; {card})")
+
+    t0 = time.time()
     phase_lockstep(torch)
     log(f"[lockstep] done ({time.time() - t0:.2f} s)")
     t0 = time.time()
@@ -1875,6 +2269,11 @@ def main():
                                     ("bound_ms", pre + "bound_ms"), ("bound_by", pre + "bound_by"),
                                     ("library_ms", pre + "library_ms"))}
                 for n, site, _ in CONF_SITES if n == name},
+            "tp_sites": {site: _site_fields(tp_rows, n, site)
+                         for n, site, _, _ in TP_FWD_SITES if n == name},
+            "tp_dock_launches": tp_dock_launches[name],
+            "tp_train_launches": tp_train_launches[name],
+            "dp_train_launches": dp_launches[name],
         })
         for tag, (site_name, _) in (("screen", SCREEN_SITE), ("redock", REDOCK_SITE)):
             if name == site_name:
@@ -1909,6 +2308,10 @@ def main():
             "confidence_dock_launches": conf_launches[name],
             "confidence_head_launches": head_launches[name],
             "mini_rollout_launches_per_step": mini_per_step[name],
+            "tp_sites": {site: _site_fields(tp_rows, name, site) for site in TP_TRAIN_SITES},
+            "tp_dock_launches": tp_dock_launches[name],
+            "tp_train_launches": tp_train_launches[name],
+            "dp_train_launches": dp_launches[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(f"[summary] wall {time.time() - t_all:.2f} s (the run before the confidence phases: "

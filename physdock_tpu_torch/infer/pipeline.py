@@ -24,6 +24,11 @@ scores every pose of a dock with the last round's (s, z), one pose at a
 time (`_confidence_scores`), into `confidence.json`, and
 `confidence_ranking` ranks the poses by its `ranking_confidence`; the
 batched paths score no confidence, as in the JAX package.
+
+With `SamplerSettings.tp` > 1 the pipeline shards the pair tensors' rows
+over the tp ranks of the process group the caller started (`parallel/
+mesh.py::init_distributed`, one process per card): every rank runs the
+dock on the same inputs and seed, and rank 0 alone writes the outputs.
 """
 
 from __future__ import annotations
@@ -58,6 +63,9 @@ from physdock_tpu_torch.model.diffusion import (
 )
 from physdock_tpu_torch.model.forcefield import build_ligand_ff, chirality_correct
 from physdock_tpu_torch.model.physdock import PhysDock, prepare_batch
+from physdock_tpu_torch.ops import _flash_lib
+from physdock_tpu_torch.parallel import mesh as mesh_lib
+from physdock_tpu_torch.parallel.tp import enable_tp
 from physdock_tpu_torch.utils.io import dump_json, md5_string
 
 
@@ -111,6 +119,10 @@ class SamplerSettings:
     # 0.8*ipTM + 0.2*pTM - has_clash instead of the geometric KMeans medoids
     enable_confidence: bool = False
     confidence_ranking: bool = False
+    # pair-row tensor parallelism over this many ranks of the process group
+    # (parallel/tp.py): z and the DiT's bias cache hold S/tp rows per card;
+    # tp=1 is the single-card program
+    tp: int = 1
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -141,6 +153,13 @@ class DockingPipeline:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.featurizer = featurizer  # SystemFeaturizer or FeaturizerWorker
+        self.writes = True  # this process writes the outputs
+        if self.s.tp > 1:
+            # process-lifetime: every later trunk and sampler call shards
+            self.writes = mesh_lib.rank() == 0
+            enable_tp(mesh_lib.make_mesh(tp=self.s.tp))
+            if self.device.type == "cuda":
+                _flash_lib.build_on_rank0()
 
     def close(self) -> None:
         """Stop the featurizer worker, if the pipeline has one."""
@@ -522,7 +541,7 @@ class DockingPipeline:
         if conf_metrics is not None:
             # rank-ordered, so confidence[0] belongs to pred_rank0
             result["confidence"] = [conf_metrics[i] for i in order]
-        if write_outputs:
+        if write_outputs and self.writes:
             os.makedirs(output_dir, exist_ok=True)
             writers.write_pdb(x_gt, meta, os.path.join(output_dir, "gt.pdb"))
             for rank, idx in enumerate(order[:5]):
@@ -564,7 +583,7 @@ class DockingPipeline:
             for smi in smiles_list:
                 results.append(self._screen_one(system, smi, output_dir, smi_map,
                                                 write_outputs))
-        if write_outputs:
+        if write_outputs and self.writes:
             dump_json(smi_map, os.path.join(output_dir, "smiles_to_md5.json"))
         return results
 

@@ -7,7 +7,10 @@ for all steps.  Guidance per step: conformer-bank distance matching at
 high sigma, the restraint-field relaxation (`model/forcefield.py`) at low
 sigma, both applied through a weighted rigid alignment of the ligand.
 Randomness comes from one `torch.Generator`; `noise_override` replaces
-every draw with caller-given arrays (the lockstep-parity hook).
+every draw with caller-given arrays (the lockstep-parity hook).  Every
+draw is made for all `num_sample` poses; `sample_range` runs a slice of
+them, each pose with the very draws it gets in the whole pass (the dp
+shard of `infer/sharded.py`).
 
 `sample_diffusion_batched` runs several ligand-systems of one shape in
 one pass, every input with a leading system axis (what `jax.vmap` of the
@@ -27,10 +30,10 @@ import torch
 from physdock_tpu_torch.model.forcefield import LigandFF, relax_positions, stack_ligand_ffs
 from physdock_tpu_torch.utils.geometry import (
     apply_centre_augmentation,
-    centre_random_augmentation,
     masked_mean,
     smooth_lddt_epsilon,
     take_rows,
+    uniform_random_rotation,
     weighted_rigid_align,
 )
 
@@ -165,6 +168,7 @@ def sample_diffusion_batched(
     conditioning: Optional[Tuple] = None,
     noise_override: Optional[Dict[str, torch.Tensor]] = None,
     return_trajectory: bool = False,
+    sample_range: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Run the EDM reverse pass for Bsys systems of one shape at once.
     batch, conditioning, guidance (`stack_guidances`) and noise_override
@@ -174,7 +178,11 @@ def sample_diffusion_batched(
 
     noise_override keys: x_init_z [Bsys, S, A, 3], aug_R [Bsys, T, S, 3,
     3], aug_t [Bsys, T, S, 3], churn_z [Bsys, T, S, A, 3]; system b then
-    draws exactly what a single-system run given its slices draws."""
+    draws exactly what a single-system run given its slices draws.
+
+    sample_range (lo, hi) returns poses lo..hi-1 of the num_sample
+    ([Bsys, hi - lo, A, 3]), drawn and sliced from the whole pass's
+    draws."""
     x_exists = batch["a_mask"].float()  # [B, A]
     n_sys, num_atoms = x_exists.shape
     dev = x_exists.device
@@ -191,12 +199,18 @@ def sample_diffusion_batched(
                                dim=-1) * x_exists
     w = is_ligand_atom[:, None, :, None]  # [B, 1, A, 1]
 
-    shape = (n_sys, num_sample)
+    lo, hi = sample_range or (0, num_sample)
+    full, shape = (n_sys, num_sample), (n_sys, hi - lo)
+
+    def mine(x):  # this call's poses of a draw or override [Bsys, num_sample, ...]
+        return x[:, lo:hi]
+
     if noise_override is not None:
-        x_next = sigmas[0] * noise_override["x_init_z"].to(dev).float()
+        x_next = sigmas[0] * mine(noise_override["x_init_z"]).to(dev).float()
     else:
-        x_next = sigmas[0] * torch.randn(shape + (num_atoms, 3), generator=generator, device=dev)
-    batch_ref_pos = batch["ref_pos"].float()[:, None].repeat(1, num_sample, 1, 1)
+        x_next = sigmas[0] * mine(torch.randn(full + (num_atoms, 3), generator=generator,
+                                              device=dev))
+    batch_ref_pos = batch["ref_pos"].float()[:, None].repeat(1, hi - lo, 1, 1)
 
     has_conf = guidance is not None and align_ref_pos
     has_ff = guidance is not None and guidance.ff is not None
@@ -214,20 +228,22 @@ def sample_diffusion_batched(
         t_cur, t_next = sigmas[i], sigmas[i + 1]
         t_cur_f = float(sig_np[i])
         if noise_override is not None:
-            x_cur = apply_centre_augmentation(
-                x_next, exists, noise_override["aug_R"][:, i].to(dev).float(),
-                noise_override["aug_t"][:, i].to(dev).float())
-        else:
-            x_cur = centre_random_augmentation(x_next, exists, generator)
+            rot = mine(noise_override["aug_R"][:, i]).to(dev).float()
+            trans = mine(noise_override["aug_t"][:, i]).to(dev).float()
+        else:  # centre_random_augmentation's draws, for every pose
+            rot = mine(uniform_random_rotation(full, generator, dev))
+            trans = mine(torch.randn(full + (3,), generator=generator, device=dev,
+                                     dtype=x_next.dtype))
+        x_cur = apply_centre_augmentation(x_next, exists, rot, trans)
 
         churn = t_cur_f > gamma_min
         if churn:
             t_hat_churn = t_cur * (gamma_0 + 1.0)
             if noise_override is not None:
-                noise = noise_override["churn_z"][:, i].to(dev).to(x_cur.dtype)
+                noise = mine(noise_override["churn_z"][:, i]).to(dev).to(x_cur.dtype)
             else:
-                noise = torch.randn(x_cur.shape, generator=generator, device=dev,
-                                    dtype=x_cur.dtype)
+                noise = mine(torch.randn(full + (num_atoms, 3), generator=generator, device=dev,
+                                         dtype=x_cur.dtype))
             ksi = noise_scale_lambda * noise * torch.sqrt(
                 torch.clamp(t_hat_churn**2 - t_cur**2, min=0.0))
             t_hat = t_hat_churn * torch.ones(shape, device=dev)

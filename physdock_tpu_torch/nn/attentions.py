@@ -4,6 +4,11 @@ Head dim is fixed at 32 with heads = channels / 32; outputs are gated by a
 linear (sigmoid-free) gate except where noted and cast back to fp32.  Every
 SDPA call goes through `ops.attention.dot_product_attention`, which routes
 it to one of the four Hopper kernel wrappers on CUDA.
+
+Under pair-row tensor parallelism (`parallel/tp.py`) z arrives with this
+rank's S/tp rows and the masks whole; each module's docstring says which
+collective it makes (the pair-bias attentions none of their own: the
+dispatcher runs the rank's query rows and gathers the output).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from physdock_tpu_torch.nn.primitives import (
     RMSNorm,
 )
 from physdock_tpu_torch.ops.attention import dot_product_attention
+from physdock_tpu_torch.parallel.tp import gather_rows, rows_like, shard_rows, tp_active
 from physdock_tpu_torch.utils.geometry import gen_attn_mask
 
 C_HIDDEN = 32  # per-head dim
@@ -47,7 +53,7 @@ def _qkvg(c, dtype, gen):
 
 class AttentionWithPairBias(nn.Module):
     """Single-rep attention with pair bias. s: [S, c_s]; z: [S, S, c_z];
-    z_mask: [S, S]."""
+    z_mask: [S, S]. Under tp z holds the rank's rows, and so does the bias."""
 
     def __init__(self, c_s, c_z, inf=1e9, eps=1e-8, dtype=torch.float32, generator=None):
         super().__init__()
@@ -66,13 +72,14 @@ class AttentionWithPairBias(nn.Module):
         q, k, v = (_split_heads(f(s_norm), h) for f in (self.linear_q, self.linear_k, self.linear_v))
         g = self.linear_g(s_norm)
         bias = torch.movedim(self.linear_z(z_norm), -1, -3)
-        bias = bias + gen_attn_mask(z_mask.float(), -self.inf)[None]
+        bias = bias + gen_attn_mask(rows_like(z_mask.float(), z.shape[-3]), -self.inf)[None]
         o = _merge_heads(dot_product_attention(q, k, v, bias))
         return (self.linear_o(o) * g).float()
 
 
 class MSARowAttentionWithPairBias(nn.Module):
-    """Row-wise MSA attention with pair bias. m: [B, S, c_m]; z: [S, S, c_z]."""
+    """Row-wise MSA attention with pair bias. m: [B, S, c_m]; z: [S, S, c_z]
+    (under tp the rank's rows, and so the bias's)."""
 
     def __init__(self, c_m, c_z, inf=1e9, eps=1e-8, dtype=torch.float32, generator=None):
         super().__init__()
@@ -92,7 +99,7 @@ class MSARowAttentionWithPairBias(nn.Module):
         g = self.linear_g(m_norm)
         # 3-D [h, S, S] bias shared by all MSA rows -> the grouped kernel
         bias = torch.movedim(self.linear_z(z_norm), -1, -3)
-        bias = bias + gen_attn_mask(z_mask.float(), -self.inf)[..., None, :, :]
+        bias = bias + gen_attn_mask(rows_like(z_mask.float(), z.shape[-3]), -self.inf)[..., None, :, :]
         o = _merge_heads(dot_product_attention(q, k, v, bias))
         return (self.linear_o(o) * g).float()
 
@@ -121,7 +128,9 @@ class MSAColumnAttention(nn.Module):
 class TriangleUpdate(nn.Module):
     """Combined incoming/outgoing triangular multiplicative update; the
     incoming variant (transpose=True) folds the transpose into the einsum
-    index order instead of transposing z."""
+    index order instead of transposing z. Under tp (z the rank's rows i)
+    the outgoing update gathers the b projection (all k rows), the
+    incoming one both projections (all j rows)."""
 
     def __init__(self, c_z, transpose=False, eps=1e-8, dtype=torch.float32, generator=None):
         super().__init__()
@@ -137,15 +146,17 @@ class TriangleUpdate(nn.Module):
         self.linear_z = Linear(C_HIDDEN, c_z, init="final", **kw)
 
     def forward(self, z, z_mask):
+        mask = rows_like(z_mask, z.shape[-3])[..., None].to(z.dtype)
         z = self.norm_in(z)
-        mask = z_mask[..., None].to(z.dtype)
         q = self.linear_qx(z) * torch.sigmoid(self.linear_q(z)) * mask
         k = self.linear_kx(z) * torch.sigmoid(self.linear_k(z)) * mask
         g = torch.sigmoid(self.linear_g(z))
         if self.transpose:
-            prod = torch.einsum("...jic,...jkc->...ikc", k, q)
+            # k of every row j, at this rank's columns i
+            k = shard_rows(gather_rows(k), -2)
+            prod = torch.einsum("...jic,...jkc->...ikc", k, gather_rows(q))
         else:
-            prod = torch.einsum("...ijc,...kjc->...ikc", q, k)
+            prod = torch.einsum("...ijc,...kjc->...ikc", q, gather_rows(k))
         prod = self.norm_out(prod)
         return (self.linear_z(prod) * g).float()
 
@@ -154,7 +165,14 @@ class TriangleAttention(nn.Module):
     """Triangle attention around the starting (transpose=False) or ending
     node.  `pad_mask` marks padded tokens with a second mask tier at
     -2 * inf, so pad keys vanish relative to other masked keys in rows
-    whose `z_mask` is fully masked."""
+    whose `z_mask` is fully masked.
+
+    Under tp (z the rank's rows i): around the starting node each row i
+    attends within itself, so only the bias, which every row shares, is
+    gathered [H, S, S]. Around the ending node the rank's rows are query
+    columns of z's transpose: the normalized z is gathered, every row's
+    keys and values come from it, and the queries and the bias rows from
+    the rank's own rows (S_q = S/tp against S_k = S)."""
 
     def __init__(self, c_z, transpose=False, inf=1e9, eps=1e-8, dtype=torch.float32,
                  generator=None):
@@ -169,19 +187,32 @@ class TriangleAttention(nn.Module):
 
     def forward(self, z, z_mask, pad_mask=None):
         if self.transpose:
-            z = z.transpose(-2, -3)
             z_mask = z_mask.transpose(-1, -2)
             if pad_mask is not None:
                 pad_mask = pad_mask.transpose(-1, -2)
         h = self.h
-        z_norm = self.norm(z)
-        q, k, v = (_split_heads(f(z_norm), h) for f in (self.linear_q, self.linear_k, self.linear_v))
-        g = self.linear_g(z_norm)
-        # bias stays 3-D [h, S, S], shared by every row -> the folded kernel
-        bias = torch.movedim(self.linear_z(z_norm), -1, -3)
-        bias = bias + gen_attn_mask(z_mask.float(), -self.inf)[..., None, :, :]
+        if self.transpose and tp_active():
+            z_norm = self.norm(z)
+            z_q = z_norm.transpose(-2, -3)  # [S, S/tp, C]: the rank's query columns
+            z_all = gather_rows(z_norm).transpose(-2, -3)
+            q = _split_heads(self.linear_q(z_q), h)
+            k, v = (_split_heads(f(z_all), h) for f in (self.linear_k, self.linear_v))
+            g = self.linear_g(z_q)
+            bias = torch.movedim(self.linear_z(shard_rows(z_all)), -1, -3)
+        else:
+            if self.transpose:
+                z = z.transpose(-2, -3)
+            z_norm = self.norm(z)
+            q, k, v = (_split_heads(f(z_norm), h)
+                       for f in (self.linear_q, self.linear_k, self.linear_v))
+            g = self.linear_g(z_norm)
+            # bias stays 3-D [h, S, S], shared by every row -> the folded kernel
+            bias = gather_rows(torch.movedim(self.linear_z(z_norm), -1, -3), -2)
+        rows = bias.shape[-2]
+        bias = bias + gen_attn_mask(rows_like(z_mask.float(), rows), -self.inf)[..., None, :, :]
         if pad_mask is not None:
-            bias = bias + gen_attn_mask(pad_mask.float(), -2.0 * self.inf)[..., None, :, :]
+            bias = bias + gen_attn_mask(rows_like(pad_mask.float(), rows),
+                                        -2.0 * self.inf)[..., None, :, :]
         o = _merge_heads(dot_product_attention(q, k, v, bias))
         o = self.linear_o(o) * g
         if self.transpose:

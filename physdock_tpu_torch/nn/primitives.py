@@ -16,6 +16,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from physdock_tpu_torch.parallel.tp import shard_rows
+
 TRUNC_STD = 0.87962566103423978  # std of the standard truncated normal on [-2, 2]
 
 
@@ -157,7 +159,9 @@ class DiTTransition(nn.Module):
 
 class OuterProductMean(nn.Module):
     """MSA -> pair outer-product update: an outer-product *sum* over MSA
-    rows, then a zero-init projection and RMSNorm (as in the reference)."""
+    rows, then a zero-init projection and RMSNorm (as in the reference).
+    Under tp, this rank's rows i of the pair update from the replicated
+    MSA: no collective."""
 
     def __init__(self, c_m: int, c_z: int, c_hidden: int = 32, eps: float = 1e-8,
                  dtype=torch.float32, generator=None):
@@ -174,7 +178,7 @@ class OuterProductMean(nn.Module):
         m_norm = self.norm_in(m)
         q = self.linear_q(m_norm)
         k = self.linear_k(m_norm)
-        outer = torch.einsum("...bic,...bjd->...ijcd", q, k)
+        outer = torch.einsum("...bic,...bjd->...ijcd", shard_rows(q, -2), k)
         outer = outer.reshape(outer.shape[:-2] + (self.c_hidden * self.c_hidden,))
         return self.norm_out(self.linear_o(outer))
 

@@ -7,6 +7,12 @@ JAX package scans one block over stacked parameters.  While autograd
 records, each block runs under activation checkpointing (`run_block`):
 the counterpart of the `nn.remat` on every scanned block there.  The
 backward re-runs the block's forward, attention kernels included.
+
+Under pair-row tensor parallelism (`parallel/tp.py`) the Triangleformer,
+Evoformer and Pairformer take this rank's rows of z as they start
+(`shard_rows`, where the JAX blocks put their sharding constraint), keep
+z row-sharded through their blocks, and gather it whole as they end; the
+DiT's bias cache keeps this rank's query rows ([..., H, S/tp, S]).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from physdock_tpu_torch.nn.primitives import (
     TimestepEmbeddings,
     Transition,
 )
+from physdock_tpu_torch.parallel.tp import current_tp_mesh, replicate, shard_rows, use_tp
 from physdock_tpu_torch.utils.geometry import take_rows
 
 
@@ -49,9 +56,16 @@ def run_block(blk, *args):
     keeps every activation instead (no recompute: fewer launches, more
     memory; the same numbers, as every kernel is deterministic)."""
     if torch.is_grad_enabled() and getattr(blk, "remat", True):
-        # the blocks draw no random numbers: no RNG state to stash
-        return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+        # the blocks draw no random numbers: no RNG state to stash; the
+        # recompute shards rows as the forward did, wherever it runs
+        return checkpoint(_call_under, blk, current_tp_mesh(), *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return blk(*args)
+
+
+def _call_under(blk, mesh, *args):
+    with use_tp(mesh):
+        return blk(*args)
 
 
 def set_remat(model: nn.Module, on: bool) -> None:
@@ -139,10 +153,10 @@ class Triangleformer(_Stack):
         self.dtype = dtype
 
     def forward(self, z, z_mask, pad_mask=None):
-        z = z.to(self.dtype)
+        z = shard_rows(z.to(self.dtype))
         for blk in self.blocks:
             z = run_block(blk, z, z_mask, pad_mask)
-        return z
+        return replicate(z)
 
 
 # ----------------------------- Evoformer stack -----------------------------
@@ -180,10 +194,10 @@ class Evoformer(_Stack):
         self.dtype = dtype
 
     def forward(self, m, z, z_mask):
-        m, z = m.to(self.dtype), z.to(self.dtype)
+        m, z = m.to(self.dtype), shard_rows(z.to(self.dtype))
         for blk in self.blocks:
             m, z = run_block(blk, m, z, z_mask)
-        return m, z
+        return m, replicate(z)
 
 
 # ----------------------------- Pairformer stack ----------------------------
@@ -216,10 +230,10 @@ class Pairformer(_Stack):
         self.dtype = dtype
 
     def forward(self, s, z, z_mask):
-        s, z = s.to(self.dtype), z.to(self.dtype)
+        s, z = s.to(self.dtype), shard_rows(z.to(self.dtype))
         for blk in self.blocks:
             s, z = run_block(blk, s, z, z_mask)
-        return s, z
+        return s, replicate(z)
 
 
 # -------------------------------- DiT stack --------------------------------
@@ -247,7 +261,9 @@ class DiT(_Stack):
 
     def compute_bias(self, z, z_mask):
         """Per-block pair biases [no_blocks, H, S, S] (cached once per
-        round); [no_blocks, Bsys, H, S, S] for z [Bsys, S, S, c_z]."""
+        round); [no_blocks, Bsys, H, S, S] for z [Bsys, S, S, c_z]. Under
+        tp this rank's query rows only: [..., H, S/tp, S]."""
+        z, z_mask = shard_rows(z), shard_rows(z_mask, -2)
         return torch.stack([run_block(blk.attention.compute_bias, z, z_mask)
                             for blk in self.blocks])
 

@@ -171,6 +171,16 @@ def build_all(force: bool = False, names=None) -> Dict[str, str]:
     return {n: lib_path(n) for n in names}
 
 
+def build_on_rank0() -> None:
+    """In a process group, rank 0 builds every stale library while the
+    others wait at a barrier, so ranks sharing a `build/` never race."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        build_all()
+    dist.barrier()
+
+
 def build(name: str = "flash_fwd", force: bool = False) -> str:
     return build_all(force, [name])[name]
 

@@ -35,6 +35,12 @@ So under grad the folded forward kernels (rows 1 and 3) do not launch, as
 in JAX. On the CPU every route stays the plain version with ordinary
 autograd.
 
+Under pair-row tensor parallelism (`parallel/tp.py`), a call whose q holds
+all S_q rows but whose bias holds this rank's S_q/tp rows (MSA rows,
+single attention and the DiT, from a row-sharded z or bias cache) goes to
+`_tp_sharded_flash`: the rank's q rows and bias rows take the same route
+as any call, against all keys, and the output rows are gathered.
+
 Layout: q, k, v are [..., H, S, D]; bias is broadcastable to
 [..., H, S, S]. Softmax statistics are always fp32.
 """
@@ -54,6 +60,7 @@ from physdock_tpu_torch.ops.flash_attention_folded import (
 )
 from physdock_tpu_torch.ops.flash_attention_folded_v3 import flash_sdpa_folded_v3
 from physdock_tpu_torch.ops.flash_attention_grouped import flash_sdpa_grouped
+from physdock_tpu_torch.parallel.tp import current_tp_mesh, gather_rows, row_range
 
 __all__ = ["dot_product_attention", "sdpa_reference", "pick_kernel"]
 
@@ -141,11 +148,27 @@ def _run_function(q, k, v, bias):
     return _RecomputeDiff.apply(flash_sdpa, q, k, v, bias)
 
 
+# calls of the row-sharded route, one per call (not per launch)
+TP_FLASH_CALLS = [0]
+
+
+def _tp_sharded_flash(q, k, v, bias, impl, mesh):
+    """This rank's S_q/tp query rows against all keys, then the rows of
+    every rank gathered. Softmax is row-local: no collective inside."""
+    lo, hi = row_range(q.shape[-2], mesh)
+    o = dot_product_attention(q[..., lo:hi, :], k, v, bias, impl)
+    TP_FLASH_CALLS[0] += 1
+    return gather_rows(o, -2, mesh)
+
+
 def dot_product_attention(q, k, v, bias=None, impl: str = "auto"):
     """impl: "auto" (the picked wrapper: kernel on CUDA, plain version on
     CPU), "flash" (a kernel; raises on CPU tensors) or "reference" (the
     plain version; raises on CUDA tensors, so a kernel run cannot silently
     become a reference run)."""
+    mesh = current_tp_mesh()
+    if mesh is not None and bias is not None and bias.shape[-2] * mesh.tp == q.shape[-2]:
+        return _tp_sharded_flash(q, k, v, bias, impl, mesh)
     if impl == "reference":
         if q.is_cuda:
             raise ValueError("impl='reference' on a CUDA tensor: the kernels serve CUDA")

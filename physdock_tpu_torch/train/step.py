@@ -1,11 +1,19 @@
-"""One training step on one device (port of `physdock_tpu/train/step.py`).
+"""One training step, on one device or over a dp x tp mesh of processes
+(port of `physdock_tpu/train/step.py`).
 
-For each system of the batch: forward, loss and backward; that system's
-gradient is clipped to 0.1 by its global norm (the reference's
-per-sample clip, train.sh --per-sample-clip-norm) and added to an fp32
-accumulator.  The sum is divided by the batch size, then the optimizer
-(global clip 10, Adam, schedule) and the EMA run.  The `dp` mesh of the
-JAX step waits for the multi-GPU slice.
+For each system of this rank's batch: forward, loss and backward; under
+tp the ranks of a replica share one system and `parallel/tp.py::
+reduce_grads` sums their shares of its gradient.  That system's gradient
+is clipped to 0.1 by its global norm (the reference's per-sample clip,
+train.sh --per-sample-clip-norm) before any reduction over dp, and added
+to an fp32 accumulator.  Then one flat fp32 all-reduce (SUM) over the dp
+group carries the accumulated gradients and the loss logs together, and
+the sum is divided by the global batch n_local * dp (the JAX step's psum
+over `dp`, train.sh --allreduce-fp32-grad).  DDP's hooks would reduce
+the gradient before the clip, so the step reduces by hand.  Then every
+rank runs the same optimizer (global clip 10, Adam, schedule) and EMA on
+the same gradient.  Without a process group (one card) no collective
+runs.
 
 With `use_mini_rollout` (loss_module3.py:599-610, train.sh
 --mini-rollout-steps 12) the forward also returns the trunk's
@@ -20,6 +28,10 @@ Every random draw of a system (its x_hat and t_hat, and the rollout's
 noise or the corruption's draws) comes from one CPU `torch.Generator`, in
 that order (`draw_system`), so a card run and a CPU run from one seed see
 the same numbers; `train_step(..., draws=...)` takes them given instead.
+Over dp every rank draws the systems of the whole global batch in order
+(the systems of one batch share their padded shapes) and keeps its own,
+so the dp=N step equals the dp=1 step on the same global batch, as the
+JAX step's fold of the global system index makes it there.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from physdock_tpu_torch.config import LossConfig
 from physdock_tpu_torch.model.diffusion import sample_diffusion
 from physdock_tpu_torch.model.losses import physdock_loss, rffold_loss
 from physdock_tpu_torch.model.physdock import prepare_batch
+from physdock_tpu_torch.parallel.mesh import Mesh, all_reduce_
+from physdock_tpu_torch.parallel.tp import reduce_grads, use_tp
 from physdock_tpu_torch.train.corrupt import corrupt_pose_draws, corrupt_pose_from_draws
 from physdock_tpu_torch.train.optim import AdamState, Optimizer, clip_by_norm, ema_update
 from physdock_tpu_torch.utils.geometry import take_rows, uniform_random_rotation
@@ -73,14 +87,20 @@ def rollout_draws(generator: Optional[torch.Generator], n_atoms: int, steps: int
 def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                     per_replica_clip: float = 0.1, ema_decay: float = 0.999,
                     sigma_data: float = 16.0, use_mini_rollout: bool = False,
-                    mini_rollout_steps: int = 12, corrupt_rollout_pose: bool = False):
+                    mini_rollout_steps: int = 12, corrupt_rollout_pose: bool = False,
+                    mesh: Optional[Mesh] = None):
     """Build `train_step(state, batch, generator, draws=None) -> (state,
     logs)`.
 
-    batch: dict of tensors on the model's device with a leading system
-    axis; `generator` (a CPU `torch.Generator`) draws every system's
-    noise, unless `draws` gives each system's (`draw_system`'s keys).
-    logs are the batch means of the loss terms, as floats."""
+    batch: dict of tensors on the model's device with a leading axis of
+    this rank's n_local systems (the global batch is the dp ranks' in
+    rank order; the tp ranks of a replica get the same systems);
+    `generator` (a CPU `torch.Generator`, seeded alike on every rank)
+    draws every system's noise, unless `draws` gives each system's of
+    the global batch (`draw_system`'s keys). logs are the global batch
+    means of the loss terms, as floats, the same on every rank."""
+    dp = 1 if mesh is None else mesh.dp
+    dp_rank = 0 if mesh is None else mesh.dp_rank
 
     def draw_system(micro: Tree, generator) -> Dict:
         x_hat, t_hat = model.augmentation_diffuse(micro, generator)
@@ -119,27 +139,44 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                    draws: Optional[List[Dict]] = None):
         names = list(state.params)
         leaves = [state.params[n] for n in names]
-        n_sys = next(iter(batch.values())).shape[0]
+        n_local = next(iter(batch.values())).shape[0]
+        micros = [prepare_batch({k: v[i] for k, v in batch.items()}) for i in range(n_local)]
+        own = range(dp_rank * n_local, (dp_rank + 1) * n_local)
+        if draws is None:
+            # the whole global batch's draws, in order; another rank's
+            # system draws at the shapes of ours
+            draws = [draw_system(micros[i - own.start] if i in own else micros[0], generator)
+                     for i in range(n_local * dp)]
         grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in state.params.items()}
         logs_sum: Dict[str, torch.Tensor] = {}
-        for i in range(n_sys):
-            micro = prepare_batch({k: v[i] for k, v in batch.items()})
-            d = draws[i] if draws is not None else draw_system(micro, generator)
-            loss, logs = loss_fn(micro, d)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
-            g = {n: torch.zeros_like(p) if gi is None else gi
-                 for n, p, gi in zip(names, leaves, g)}
-            clipped = clip_by_norm(g, per_replica_clip)
+        for i, micro in enumerate(micros):
+            with use_tp(mesh):
+                loss, logs = loss_fn(micro, draws[own.start + i])
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
+            reduce_grads(g, mesh)
+            clipped = clip_by_norm(dict(zip(names, g)), per_replica_clip)
             torch._foreach_add_([grads[n] for n in names], [clipped[n].float() for n in names])
             for k, v in logs.items():
                 logs_sum[k] = logs_sum.get(k, 0.0) + v.detach().float()
-        torch._foreach_div_(list(grads.values()), n_sys)
+        keys = list(logs_sum)
+        if mesh is not None and mesh.dp_group is not None:
+            # one flat fp32 all-reduce of the gradients and the logs
+            flat = torch.cat([grads[n].reshape(-1) for n in names]
+                             + [logs_sum[k].reshape(1) for k in keys])
+            all_reduce_(flat, mesh.dp_group)
+            parts = torch.split(flat, [grads[n].numel() for n in names] + [1] * len(keys))
+            for n, part in zip(names, parts):
+                grads[n].copy_(part.view_as(grads[n]))
+            logs_sum = {k: part[0] for k, part in zip(keys, parts[len(names):])}
+        total = n_local * dp
+        torch._foreach_div_(list(grads.values()), total)
         updates, opt_state = optimizer.update(grads, state.opt_state)
         with torch.no_grad():
             torch._foreach_add_([state.params[n] for n in names], [updates[n] for n in names])
         ema_update(state.ema_params, state.params, ema_decay)
         state = dataclasses.replace(state, step=state.step + 1, opt_state=opt_state)
-        return state, {k: float(v) / n_sys for k, v in logs_sum.items()}
+        return state, {k: float(logs_sum[k]) / total for k in keys}
 
     # the pieces, for callers that want one system's loss and gradient alone
     train_step.draw_system = draw_system

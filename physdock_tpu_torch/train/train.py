@@ -1,7 +1,13 @@
-"""Training CLI (port of `physdock_tpu/train/train.py`, one device).
+"""Training CLI (port of `physdock_tpu/train/train.py`), on one card or
+on several, one process per card.
 
     python -m physdock_tpu_torch.train.train --dataset_dir DATA -o ckpts/ \
         --model_name medium --crop_size 256 --atom_crop_size 2048
+
+    # 4 cards: 2 replicas (dp) of 2 pair-row shards (tp); one process each
+    for i in 0 1 2 3; do python -m physdock_tpu_torch.train.train ... \
+        --batch_size 2 --tp 2 --coordinator localhost:29500 \
+        --num_processes 4 --process_id $i & done
 
 `DATA/train_val/` holds the prepared system `.pkl.gz` files (optional
 `DATA/train_val_weights.json`). Runs on the card unless `--device cpu`.
@@ -13,6 +19,13 @@ device included, the checkpoint save not), that wait alone, checkpoints
 and sampler retries.  Resumes from
 the newest checkpoint in the output dir, or starts from `--init_from_ckpt`
 (a train-state `.pt` or a JAX `.npz` parameter artifact).
+Each process drives `cuda:{process_id % cards}` (the JAX package runs one
+process per host over all its chips); `--coordinator` starts the process
+group (NCCL, gloo with `--device cpu`). The `--batch_size` systems of a
+step split over dp = num_processes / tp replicas, each featurizing its
+own from a sampler stream of its own; the ranks of a replica share them
+(`train/step.py`). Rank 0 alone writes the checkpoints (which hold the
+EMA) and the `scalars.jsonl` metrics lines (`train/metrics.py`).
 `--use_mini_rollout` builds the confidence head and trains it on a short
 no-grad rollout of `--mini_rollout_steps` steps (the head's parameters
 then sit in the optimizer, the EMA, the checkpoints and the exported
@@ -33,7 +46,10 @@ from physdock_tpu_torch.config import PhysDockConfig
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
 from physdock_tpu_torch.infer.pipeline import arrays_to_device, resolve_device
 from physdock_tpu_torch.model.import_weights import is_train_state, read_checkpoint
+from physdock_tpu_torch.ops import _flash_lib
+from physdock_tpu_torch.parallel import mesh as mesh_lib
 from physdock_tpu_torch.train import checkpoint as ckpt_lib
+from physdock_tpu_torch.train.metrics import MetricsLogger
 from physdock_tpu_torch.train.optim import make_optimizer
 from physdock_tpu_torch.train.sampler import WeightedSystemSampler, batch_iterator, prefetch
 from physdock_tpu_torch.train.step import init_train_state, make_train_step
@@ -45,7 +61,8 @@ def parse_args(argv=None):
     p.add_argument("-o", "--ckpt_dir", required=True)
     p.add_argument("--model_name", default="medium",
                    choices=["toy", "tiny", "small", "medium", "full"])
-    p.add_argument("--batch_size", type=int, default=1, help="systems per step")
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="systems per step over all replicas: a multiple of dp")
     p.add_argument("--crop_size", type=int, default=256)
     p.add_argument("--atom_crop_size", type=int, default=2048)
     p.add_argument("--num_augmentation_sample", type=int, default=48)
@@ -70,12 +87,33 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked: --device cpu)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="pair-row tensor-parallel ranks per replica (parallel/tp.py); "
+                        "dp = num_processes / tp")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's rendezvous (or an init URL such as "
+                        "file:///path): starts the process group, one process per card on "
+                        "cuda:{process_id %% cards}, where the JAX package runs one process "
+                        "per host")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.coordinator:
+        mesh_lib.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                  backend="nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda" and mesh_lib.distributed():
+        device = torch.device("cuda", mesh_lib.rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        _flash_lib.build_on_rank0()
+    mesh = mesh_lib.make_mesh(tp=args.tp)
+    if args.batch_size % mesh.dp:
+        raise ValueError(f"--batch_size {args.batch_size} is not a multiple of dp={mesh.dp}")
+    writer = mesh_lib.rank() == 0
     cfg = PhysDockConfig.named(
         args.model_name,
         crop_size=args.crop_size,
@@ -103,13 +141,16 @@ def main(argv=None):
     train_step = make_train_step(model, optimizer, loss_cfg, ema_decay=args.ema_decay,
                                  sigma_data=cfg.model.sigma_data,
                                  use_mini_rollout=args.use_mini_rollout,
-                                 mini_rollout_steps=args.mini_rollout_steps)
+                                 mini_rollout_steps=args.mini_rollout_steps, mesh=mesh)
 
     featurizer = SystemFeaturizer(cfg.data, inference_mode=False, seed=args.seed,
                                   pad_to_bucket=False)
-    sampler = WeightedSystemSampler.from_dataset_dir(args.dataset_dir, args.seed)
-    batches = prefetch(batch_iterator(sampler, featurizer, args.batch_size, args.crop_size,
-                                      args.atom_crop_size))
+    # a stream of systems per replica; the ranks of a replica share it
+    sampler = WeightedSystemSampler.from_dataset_dir(args.dataset_dir,
+                                                     args.seed + 7919 * mesh.dp_rank)
+    batches = prefetch(batch_iterator(sampler, featurizer, args.batch_size // mesh.dp,
+                                      args.crop_size, args.atom_crop_size))
+    metrics = MetricsLogger(args.ckpt_dir) if writer else None
     noise = torch.Generator().manual_seed(args.seed)
     summary = {"device": str(device), "start_step": state.step, "steps": [], "logs": [],
                "step_seconds": [], "wait_seconds": [], "checkpoints": []}
@@ -128,6 +169,9 @@ def main(argv=None):
             summary["logs"].append(logs)
             summary["step_seconds"].append(dt)
             summary["wait_seconds"].append(t_wait)
+            if not writer:
+                continue
+            metrics.log(state.step, logs)
             if state.step % 10 == 0 or state.step == args.total_steps:
                 print(f"step {state.step} loss {logs['loss']:.4f} ({dt:.2f}s) {logs}", flush=True)
             if state.step % args.save_every == 0:
@@ -136,6 +180,14 @@ def main(argv=None):
                 print(f"checkpoint: {path}", flush=True)
     finally:
         batches.close()
+        if metrics is not None:
+            metrics.close()
+        if args.coordinator:
+            mesh_lib.close_distributed()
+    if device.type == "cuda":
+        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        print(f"rank {mesh_lib.rank()}: peak memory allocated {summary['peak_memory_bytes']} B",
+              flush=True)
     summary["retries"] = sampler.retries
     summary["state"] = state
     summary["model"] = model

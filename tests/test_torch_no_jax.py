@@ -1,10 +1,11 @@
 """The PyTorch port must run where JAX is not installed.
 
   * a static scan: no module of `physdock_tpu_torch/` (the confidence
-    head, the pose corruption, the reference checkpoint import and the
-    metrics log included), and not `chip_smoke.py` or the train-to-dock
-    gate `scripts/torch_overfit_gate.py`, imports jax, jaxlib, flax, optax
-    or physdock_tpu;
+    head, the pose corruption, the reference checkpoint import, the
+    metrics log and the multi-GPU modules included), and not
+    `chip_smoke.py` or the train-to-dock gate
+    `scripts/torch_overfit_gate.py`, imports jax, jaxlib, flax, optax or
+    physdock_tpu;
   * a subprocess whose `sys.meta_path` makes those imports raise docks two
     demo systems through `physdock_tpu_torch.cli.redocking.main` on the CPU
     (tiny crop, 2 steps; `dock_many` with the inline featurizer), then the
@@ -63,6 +64,8 @@ def test_port_sources_import_nothing_of_jax():
             "physdock_tpu_torch/data/parsers.py",
             "physdock_tpu_torch/cli/prepare_system.py",
             "physdock_tpu_torch/model/import_weights.py", "physdock_tpu_torch/train/metrics.py",
+            "physdock_tpu_torch/parallel/mesh.py", "physdock_tpu_torch/parallel/tp.py",
+            "physdock_tpu_torch/parallel/launch.py", "physdock_tpu_torch/infer/sharded.py",
             "scripts/torch_overfit_gate.py"} <= scanned
     assert not offenders, offenders
 
