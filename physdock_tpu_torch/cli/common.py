@@ -84,6 +84,11 @@ def build_pipeline(args):
         SamplerSettings,
         resolve_device,
     )
+    from physdock_tpu_torch.utils.compile_cache import enable as enable_compile_cache
+
+    # the kernels and the native library are built once and kept
+    # (PHYSDOCK_COMPILE_CACHE, build/ by default), so a later process loads them
+    enable_compile_cache()
 
     device = resolve_device(args.device)
     cfg = PhysDockConfig.named(

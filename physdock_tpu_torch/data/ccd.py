@@ -82,26 +82,6 @@ def ligand_entry(mol: Molecule, ref_pos: Optional[np.ndarray] = None) -> Dict:
     return feats
 
 
-def perceive_bonds(pos: np.ndarray, atomic_numbers: np.ndarray, scale: float = 1.3):
-    """Distance-based covalent bond perception (NumPy; pairs with
-    0.5 A < d < scale * (r_cov_i + r_cov_j))."""
-    from physdock_tpu_torch.data.embed import _COV_RADII
-
-    pos = np.asarray(pos, np.float32)
-    z = np.asarray(atomic_numbers, np.int32)
-    n = len(z)
-    out = []
-    for i in range(n):
-        for j in range(i + 1, n):
-            d = np.linalg.norm(pos[i] - pos[j])
-            rmax = scale * (
-                _COV_RADII.get(int(z[i]), 1.2) + _COV_RADII.get(int(z[j]), 1.2)
-            )
-            if 0.5 < d < rmax:
-                out.append((i, j))
-    return out
-
-
 def infer_elements(pos: np.ndarray):
     """Heuristic heavy-atom element recovery from geometry (last resort).
 
@@ -115,12 +95,14 @@ def infer_elements(pos: np.ndarray):
 
     Returns (atomic_numbers [n], bond pairs).
     """
+    from physdock_tpu_torch import native
+
     pos = np.asarray(pos, np.float32)
     n = len(pos)
     z = np.full(n, 6, np.int32)
     # all-carbon perception with generous scale: rmax = 1.25*(0.76+0.76)
     # = 1.9 A covers C/N/O (1.2-1.6 A), S/Cl (1.7-1.85 A) and Br (1.9 A)
-    pairs = perceive_bonds(pos, z, scale=1.25)
+    pairs = native.perceive_bonds(pos, z, scale=1.25)
     lengths = [[] for _ in range(n)]
     for i, j in pairs:
         d = float(np.linalg.norm(pos[i] - pos[j]))
@@ -278,13 +260,15 @@ def molecule_from_positions(
     If the perceived graph is disconnected, the closest inter-fragment
     atom pairs are bridged so downstream graph algorithms stay defined.
     """
+    from physdock_tpu_torch import native
+
     pos = np.asarray(pos, np.float32)
     n = len(pos)
     if atomic_numbers is None:
         z, pairs = infer_elements(pos)
     else:
         z = np.asarray(atomic_numbers, np.int32)
-        pairs = perceive_bonds(pos, z, scale=1.17)
+        pairs = native.perceive_bonds(pos, z, scale=1.17)
 
     # connectivity repair (a ligand is a single molecule)
     def components(pairs):

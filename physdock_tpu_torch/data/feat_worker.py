@@ -123,6 +123,13 @@ class FeaturizerWorker:
         self._wq.put(("init", *self._ctor))
         self._ready = False
 
+    def start(self) -> None:
+        """Start the worker process now, if it is not running, so that its
+        start overlaps the caller's device work; requests wait for it to be
+        ready as before."""
+        if not self._alive:
+            self._spawn()
+
     def load_here(self, system, num_confs: Optional[int] = None, conf_seed: int = 0,
                   compact: bool = False, **kw):
         """`load` in the caller's process, with the worker's code and disk

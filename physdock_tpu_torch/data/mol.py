@@ -498,7 +498,8 @@ def write_sdf(
     """Serialize to a V2000 SDF block."""
     coords = mol.coords if coords is None else np.asarray(coords)
     n, nb = mol.num_atoms, len(mol.bonds)
-    lines = [name or mol.name or "ligand", "  physdock_tpu_torch", ""]
+    # the program line of the JAX package's writer: both write the same bytes
+    lines = [name or mol.name or "ligand", "  physdock_tpu", ""]
     lines.append(
         f"{n:>3}{nb:>3}  0  0  0  0  0  0  0  0999 V2000"
     )

@@ -16,7 +16,8 @@ with the worker, the first is featurized here while the worker starts,
 then system k+1 is featurized and system k-1 post-processed in the
 worker while system k's rounds run; with `batch_size` > 1 systems
 of one MSA depth are re-padded to a common bucket and share one sampler
-pass.  Screening docks a SMILES list into one receptor, one ligand at a
+pass, whose poses the worker then post-processes (so does a batched
+screen's group, when the featurizer is a worker).  Screening docks a SMILES list into one receptor, one ligand at a
 time or in groups of same-shaped ligand-systems that share one sampler
 pass (`model/diffusion.sample_diffusion_batched`); the trunk runs once
 per system and round.  With `enable_confidence` the confidence head
@@ -180,6 +181,12 @@ class DockingPipeline:
         return dict(num_confs=self.s.num_confs if want else None, conf_seed=self.s.seed,
                     compact=True)
 
+    def _post_in_worker(self) -> bool:
+        """A batched group's NumPy align/rank/score runs in the worker, as in
+        dock_many (relaxation needs the in-process path)."""
+        return isinstance(self.featurizer, FeaturizerWorker) and not (
+            self.s.enable_sidechain_relaxation)
+
     @staticmethod
     def _with_bank(payload):
         """(feats, meta) of a worker-code load, the conformer bank in meta."""
@@ -340,6 +347,8 @@ class DockingPipeline:
         sampler pass per round (`_run_group_batched`); a chunk whose
         guidance cannot be built docks one system at a time."""
         t_start = time.time()
+        if self._post_in_worker():
+            self.featurizer.start()  # its start overlaps the loads and rounds
         groups: Dict[int, list] = {}
         for sysp in systems:
             feats, meta = self._load(sysp, **kw)
@@ -603,6 +612,8 @@ class DockingPipeline:
         """Featurize a batch of SMILES against one receptor, group them by
         the shapes of their features and dock each group in one pass."""
         t_start = time.time()
+        if self._post_in_worker():
+            self.featurizer.start()  # its start overlaps the loads and rounds
         results: List[Dict] = []
         groups: Dict[tuple, list] = {}
         for smi in smiles:
@@ -714,12 +725,20 @@ class DockingPipeline:
             if all(p.done for p in protocols):
                 break
         timings["rounds_s"] = round(time.time() - t_start - t_feat, 3)
+        all_poses = [protocols[b].final_poses() if guided else x[b][: s.max_samples]
+                     for b in range(n)]
+        posts: List = [None] * n
+        if self._post_in_worker():
+            for b, (feats, meta) in enumerate(items):
+                self.featurizer.submit_post(
+                    all_poses[b], self._post_args(feats, meta, remove_ligand, smis[b]))
+            posts = [self.featurizer.result() for _ in range(n)]
         out: List[Dict] = []
         for b, (feats, meta) in enumerate(items):
-            poses = protocols[b].final_poses() if guided else x[b][: s.max_samples]
-            r = self._postprocess(feats, meta, poses, out_dirs[b], remove_ligand=remove_ligand,
-                                  smi=smis[b], rounds_run=rounds_run, t_feat=t_feat,
-                                  t_start=t_start, write_outputs=write_outputs)
+            r = self._postprocess(feats, meta, all_poses[b], out_dirs[b],
+                                  remove_ligand=remove_ligand, smi=smis[b],
+                                  rounds_run=rounds_run, t_feat=t_feat, t_start=t_start,
+                                  write_outputs=write_outputs, post=posts[b])
             r["vs_batch_size"] = n
             r["timings"] = dict(timings)
             out.append(r)

@@ -37,12 +37,15 @@ from typing import Dict
 
 import torch
 
+from physdock_tpu_torch.utils.compile_cache import env_build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "flash_fwd": os.path.join(_PKG, "csrc", "flash_fwd.cu"),
     "flash_bwd": os.path.join(_PKG, "csrc", "flash_bwd.cu"),
 }
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+# the compile cache (`utils/compile_cache.py`): build/ unless PHYSDOCK_COMPILE_CACHE names another
+BUILD_DIR = env_build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

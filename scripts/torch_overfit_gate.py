@@ -26,6 +26,13 @@ training and goes on to the dock, so each window writes the gate file.
 The resume step is folded into the noise generator's and the MSA draw's
 seeds, so a resumed window does not replay the first one.
 
+`--draws jax` replaces the port's noise generator by the JAX gate's own
+draws (`scripts/torch_jax_draws.py`: the same keys, t_hat, noise and
+centre augmentation as `scripts/overfit_gate.py` at the same `--seed`,
+the resume step folded in as it does), fed through the train step's
+`draws` argument: a diagnostic that makes the last input of training
+equal to the JAX gate's.
+
     python scripts/torch_overfit_gate.py --deadline_ts $(( $(date +%s) + 3000 ))
     python scripts/torch_overfit_gate.py --device cpu --steps 4 --crop 64 \\
         --atom_crop 512 --aug 2 --dock_rounds 1 --dock_poses 2   # CPU smoke
@@ -74,6 +81,9 @@ def parse_args(argv=None):
     p.add_argument("--fp32", action="store_true",
                    help="fp32 compute on the card too (a diagnostic: the recipe trains in bf16 "
                         "on the card, as the JAX gate did on its accelerator)")
+    p.add_argument("--draws", choices=("port", "jax"), default="port",
+                   help="the train step's noise: the port's generator, or the JAX gate's "
+                        "keys reproduced by scripts/torch_jax_draws.py")
     p.add_argument("--deadline_ts", type=float, default=0.0,
                    help="unix time at which this window stops training, saves the train "
                         "state and docks (0: no deadline)")
@@ -114,6 +124,7 @@ def main(argv=None):
         arrays_to_device,
         resolve_device,
     )
+    from physdock_tpu_torch.model.physdock import prepare_batch
     from physdock_tpu_torch.nn.transformers import set_remat
     from physdock_tpu_torch.train import checkpoint as ckpt_lib
     from physdock_tpu_torch.train.metrics import MetricsLogger
@@ -183,6 +194,22 @@ def main(argv=None):
     # a resumed window must not replay the first window's draws
     noise = torch.Generator().manual_seed(args.seed * 1_000_003 + start_step)
     rng = np.random.default_rng((args.seed, start_step))
+    if args.draws == "jax":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import torch_jax_draws
+
+        jax_keys = torch_jax_draws.GateKeys(args.seed, start_step)
+
+    def step_draws(batch):
+        """The JAX gate's draws for this step's systems (None: the port's)."""
+        if args.draws != "jax":
+            return None
+        k_step = jax_keys.next_step()
+        n = next(iter(batch.values())).shape[0]
+        micros = [prepare_batch({k: v[i] for k, v in batch.items()}) for i in range(n)]
+        return [torch_jax_draws.system_draws(jax_keys.system_key(k_step, i), m["x_gt"],
+                                             m["x_exists"], args.aug, cfg.model.sigma_data)
+                for i, m in enumerate(micros)]
 
     def build_batch(step_i):
         members = group_idx[step_i % len(group_idx)]
@@ -206,7 +233,8 @@ def main(argv=None):
                 print(f"deadline reached at step {step_i}; stopping training", flush=True)
                 break
             t0 = time.time()
-            state, logs = train_step(state, build_batch(step_i), noise)
+            batch = build_batch(step_i)
+            state, logs = train_step(state, batch, noise, draws=step_draws(batch))
             losses.append(logs["loss"])  # a float: the step has ended on the card
             step_s.append(time.time() - t0)
             terms_hist.append(logs)
@@ -272,7 +300,7 @@ def main(argv=None):
         "results": results,
         "device": card,
         "compute_dtype": str(cfg.dtypes.compute_dtype).replace("torch.", ""),
-        "recipe": {"seed": args.seed, "lr": args.lr, "warmup": args.warmup, "aug": args.aug,
+        "recipe": {"seed": args.seed, "draws": args.draws, "lr": args.lr, "warmup": args.warmup, "aug": args.aug,
                    "dock_steps": args.dock_steps, "dock_rounds": args.dock_rounds,
                    "dock_poses": args.dock_poses, "num_confs": settings.num_confs},
         "seconds_per_step": window["s_per_step"],

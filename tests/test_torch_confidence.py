@@ -27,6 +27,7 @@ preset at full widths with a 2-block head, 31.8 M parameters).
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +66,15 @@ NPZ = os.path.join(REPO, "_confidence", "ema_params_conf.npz")
 TOY_NPZ = os.path.join(REPO, "_overfit", "ema_params.npz")
 REL = 1e-3
 HEAD_KEYS, HEAD_PARAMS = 93, 8412914
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends: a train state or a
+    checkpoint written here takes hundreds of MB, and pytest keeps the
+    directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

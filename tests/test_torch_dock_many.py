@@ -241,6 +241,44 @@ def test_dock_many_batched(cfg, model, worker, tmp_path, featurizer, monkeypatch
         assert (tmp_path / r["system_id"] / "bust_report.json").exists()
 
 
+def test_batched_screen_post_processes_in_the_worker(cfg, model, worker, tmp_path, monkeypatch):
+    """A batched screen's group (two SMILES into one receptor, loaded once)
+    run through a pipeline whose featurizer is the worker hands each
+    ligand-system's poses to the worker's post-processing (`submit_post`);
+    its ranks and written poses equal the in-process pipeline's."""
+    import copy
+
+    posted = []
+    orig = FeaturizerWorker.submit_post
+
+    def recording(self, poses, args):
+        posted.append(np.shape(poses))
+        return orig(self, poses, args)
+
+    monkeypatch.setattr(FeaturizerWorker, "submit_post", recording)
+    smis = ["CC(=O)Nc1ccc(O)cc1", "OC(=O)c1ccccc1O"]
+    # no KMeans ranking (its first call imports scikit-learn in the worker)
+    # and no guidance (no conformer banks to build): the post is the same
+    settings = _settings(enable_ranking=False, enable_physics_correction=False)
+    inline = DockingPipeline(cfg, model, SystemFeaturizer(cfg.data, **FZ), settings,
+                             device="cpu")
+    items = [inline._load(PKL, remove_ligand=True, smi=smi, num_msa_rounds=1) for smi in smis]
+    assert np.shape(items[0][0]["a_mask"]) == np.shape(items[1][0]["a_mask"])
+    res = {}
+    for name, pipe in (("inline", inline),
+                       ("worker", DockingPipeline(cfg, model, worker, settings, device="cpu"))):
+        res[name] = pipe._run_group_batched(
+            copy.deepcopy(items), [str(tmp_path / name / str(i)) for i in range(2)],
+            remove_ligand=True, smis=smis, write_outputs=True, t_start=0.0)
+    assert len(posted) == 2 and all(p[0] == 2 for p in posted)
+    for i, (a, b) in enumerate(zip(res["worker"], res["inline"])):
+        assert a["vs_batch_size"] == b["vs_batch_size"] == 2 and a["num_poses"] == 2
+        assert a["rank_order"] == b["rank_order"] and a["top5_rmsd"] is b["top5_rmsd"] is None
+        for f in ("pred_rank0.pdb", "ligand_rank0.sdf", "ligand_rank1.sdf"):
+            assert ((tmp_path / "worker" / str(i) / f).read_bytes()
+                    == (tmp_path / "inline" / str(i) / f).read_bytes()), f
+
+
 def _captured_group(pipe, monkeypatch, dock_many):
     """The (items, gt_ligs) that `dock_many` hands `pipe`'s
     `_run_group_batched`, which then docks nothing."""

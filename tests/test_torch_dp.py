@@ -11,10 +11,12 @@ processes: tests/test_torch_dp_cli.py.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import test_torch_train as ttrain
@@ -32,6 +34,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "_overfit", "ema_params.npz")
 DP, N_AUG = 2, 2
 PARITY_OPT = dict(peak_lr=1e3, warmup_steps=1, eps=1.0)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends: a train state or a
+    checkpoint written here takes hundreds of MB, and pytest keeps the
+    directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _singles():

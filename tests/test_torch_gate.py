@@ -3,25 +3,39 @@ as the JAX package's `scripts/overfit_gate.py` has its CPU smoke: 4 steps
 at crop 64/512 with 2 augmentation samples from random weights, then the
 4 demo systems redocked with the EMA weights (1 round of 2 poses, 4
 sampler steps), the gate file written to a temporary directory. Then a
-second window to step 5 resumes from the first window's train state.
+second window to step 5 resumes from the first window's train state, on
+the JAX gate's draws (`--draws jax`). Each window writes one checkpoint,
+at its end.
 
 Checked: the gate file holds `OVERFIT_GATE.json`'s keys with this run's
 numbers (steps, crop, a result per system with its top-5 RMSDs, the pass
 verdicts computed by the JAX gate's rule from them), the device and
 compute dtype (fp32 on the CPU), the SHA-256 of the EMA `.npz` it wrote,
 and one window record per run; the second window starts at step 4 and
-ends at 5; the metrics log holds one line per step.
+ends at 5 with the JAX draws in its recipe; the metrics log holds one line
+per step.
 """
 
 import hashlib
 import importlib.util
 import json
 import os
+import shutil
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "scripts", "torch_overfit_gate.py")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends: a train state or a
+    checkpoint written here takes hundreds of MB, and pytest keeps the
+    directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _gate():
@@ -36,7 +50,7 @@ def test_gate_cpu_smoke_writes_the_gate_file_and_resumes(tmp_path):
     gate = _gate()
     out, gate_out = str(tmp_path / "work"), str(tmp_path / "gate.json")
     args = ["--device", "cpu", "--crop", "64", "--atom_crop", "512", "--aug", "2",
-            "--dock_rounds", "1", "--dock_poses", "2", "--dock_steps", "4", "--ckpt_every", "2",
+            "--dock_rounds", "1", "--dock_poses", "2", "--dock_steps", "4", "--ckpt_every", "4",
             "--out", out, "--gate_out", gate_out]
     res = gate.main(["--steps", "4", *args])
     with open(gate_out) as f:
@@ -58,8 +72,10 @@ def test_gate_cpu_smoke_writes_the_gate_file_and_resumes(tmp_path):
         assert saved["ema_npz_sha256"] == hashlib.sha256(f.read()).hexdigest()
     assert [(w["start_step"], w["end_step"]) for w in saved["windows"]] == [(0, 4)]
 
-    res = gate.main(["--steps", "5", *args])
+    assert sorted(os.listdir(os.path.join(out, "ckpts"))) == ["step_00000004.pt"]
+
+    res = gate.main(["--steps", "5", "--draws", "jax", *args])
     assert [(w["start_step"], w["end_step"]) for w in res["windows"]] == [(0, 4), (4, 5)]
-    assert res["steps"] == 5
+    assert res["steps"] == 5 and res["recipe"]["draws"] == "jax"
     with open(os.path.join(out, "scalars.jsonl")) as f:
         assert [json.loads(line)["step"] for line in f] == [1, 2, 3, 4, 5]

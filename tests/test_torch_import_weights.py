@@ -29,6 +29,7 @@ release file (`model.`), a Uni-Core training checkpoint (`{"ema":
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -52,6 +53,15 @@ CONF_NPZ = os.path.join(REPO, "_confidence", "ema_params_conf.npz")
 SYSTEMS = os.path.join(REPO, "demo", "redocking", "Posebusters_subset")
 FEATS = os.path.join(REPO, "demo", "redocking", "features")
 LAYOUTS = ("release", "unicore", "compiled")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends: a train state or a
+    checkpoint written here takes hundreds of MB, and pytest keeps the
+    directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)
@@ -81,7 +91,8 @@ def ref_files(tmp_path_factory):
             path = str(root / f"{layout}{'_head' if head else ''}.pt")
             torch.save(reference_layout(sd, layout), path)
             files[(layout, head)] = (path, sd)
-    return files
+    yield files
+    shutil.rmtree(root, ignore_errors=True)  # six reference files, ~650 MB
 
 
 def _via_jax(path):

@@ -11,7 +11,11 @@
     (tiny crop, 2 steps; `dock_many` with the inline featurizer), then the
     same two through `dock_many` with the featurizer worker, whose
     `PYTHONPATH` starts with a shim where `jax` and `physdock_tpu` raise on
-    import; the PDB and SDF it writes must parse;
+    import; the PDB and SDF it writes must parse; then it runs the
+    homology-search CLI (`cli.run_homo_search`, a pool of two spawned
+    workers under the same shim) with fake `jackhmmer` and `hhblits`
+    binaries, and builds the self-contained demo complex
+    (`data.demo.make_demo_complex`);
   * the worker alone, under that shim with `torch` raising too, loads a
     demo system and serves a post request;
   * another screens two demo SMILES into the demo receptor through
@@ -38,7 +42,8 @@ def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "physdock_tpu_torch", "**", "*.py"),
                              recursive=True))
     return files + [os.path.join(REPO, "chip_smoke.py"),
-                    os.path.join(REPO, "scripts", "torch_overfit_gate.py")]
+                    os.path.join(REPO, "scripts", "torch_overfit_gate.py"),
+                    os.path.join(REPO, "scripts", "torch_jax_draws.py")]
 
 
 def test_port_sources_import_nothing_of_jax():
@@ -66,7 +71,13 @@ def test_port_sources_import_nothing_of_jax():
             "physdock_tpu_torch/model/import_weights.py", "physdock_tpu_torch/train/metrics.py",
             "physdock_tpu_torch/parallel/mesh.py", "physdock_tpu_torch/parallel/tp.py",
             "physdock_tpu_torch/parallel/launch.py", "physdock_tpu_torch/infer/sharded.py",
-            "scripts/torch_overfit_gate.py"} <= scanned
+            "physdock_tpu_torch/native/__init__.py", "physdock_tpu_torch/data/msa/parsers.py",
+            "physdock_tpu_torch/data/msa/tools.py", "physdock_tpu_torch/data/msa/search.py",
+            "physdock_tpu_torch/data/msa/templates.py", "physdock_tpu_torch/data/demo.py",
+            "physdock_tpu_torch/utils/profiling.py", "physdock_tpu_torch/utils/flops.py",
+            "physdock_tpu_torch/utils/compile_cache.py",
+            "physdock_tpu_torch/cli/run_homo_search.py",
+            "scripts/torch_overfit_gate.py", "scripts/torch_jax_draws.py"} <= scanned
     assert not offenders, offenders
 
 
@@ -112,9 +123,21 @@ DOCK = textwrap.dedent("""
         many = pipe.dock_many(sorted(glob.glob({systems!r} + "/*.pkl.gz")), {out!r} + "_worker")
     finally:
         pipe.close()
+    # the homology search (fake binaries on PATH) and the demo builder
+    from physdock_tpu_torch.cli import run_homo_search
+    from physdock_tpu_torch.data.demo import make_demo_complex
+    dbs = []
+    for name in ("uniref90", "uniprot", "mgnify", "bfd", "uniclust30"):
+        dbs += ["--" + name, {out!r} + "_" + name + ".db"]
+    run_homo_search.main(["-f", {fastas!r}, "-o", {out!r} + "_msa", "--num_workers", "2",
+                          "--n_cpu", "1", *dbs])
+    feats = sorted(glob.glob({out!r} + "_msa/msa_features/*.pkl.gz"))
+    demo_pkl = make_demo_complex({out!r} + "_demo")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("RESULT " + json.dumps(res))
     print("MANY " + json.dumps(many))
+    print("MSA " + json.dumps(feats))
+    print("DEMO " + demo_pkl)
 """)
 
 
@@ -136,8 +159,23 @@ def test_redock_runs_with_jax_blocked(tmp_path):
     for name in ("5SAK_ZRY_A_1", "5SD5_HWI_A_1"):
         os.symlink(os.path.join(REPO, "demo", "redocking", "Posebusters_subset",
                                 f"{name}.pkl.gz"), systems / f"{name}.pkl.gz")
-    code = DOCK.format(blocked=BLOCKED, repo=REPO, out=out, systems=str(systems))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_shim(tmp_path), REPO]))
+    # fake search binaries and one fasta per query, named by its MSA key
+    from test_torch_msa import HHBLITS, JACKHMMER, SEQS
+    from physdock_tpu_torch.utils.io import protein_msa_key
+
+    bin_dir, fastas = tmp_path / "bin", tmp_path / "fastas"
+    bin_dir.mkdir()
+    fastas.mkdir()
+    for name, text in (("jackhmmer", JACKHMMER), ("hhblits", HHBLITS)):
+        (bin_dir / name).write_text(text)
+        (bin_dir / name).chmod(0o755)
+    for seq in SEQS:
+        (fastas / f"{protein_msa_key(seq)}.fasta").write_text(f">q\n{seq}\n")
+    code = DOCK.format(blocked=BLOCKED, repo=REPO, out=out, systems=str(systems),
+                       fastas=str(fastas))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_shim(tmp_path), REPO]),
+               PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+               FAKE_LOG=str(tmp_path / "calls.log"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=150, env=env, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -153,6 +191,13 @@ def test_redock_runs_with_jax_blocked(tmp_path):
         # the first system is featurized in process, the second by the worker
         assert ("load_detail" in m["timings"]) == (i > 0) and "load_detail" not in r["timings"]
     res = results[1]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MSA ")][-1]
+    msa = json.loads(line[len("MSA "):])
+    assert sorted(os.path.basename(p) for p in msa) == sorted(
+        f"{protein_msa_key(s)}.pkl.gz" for s in SEQS)
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 4 * len(SEQS)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("DEMO ")][-1]
+    assert os.path.exists(line[len("DEMO "):])
 
     from physdock_tpu.data.mol import read_sdf
     from physdock_tpu.data.parsers import parse_pdb

@@ -21,6 +21,7 @@ round-trip the bridge bit for bit.
 
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -70,9 +71,11 @@ def recycle_npz(tmp_path_factory):
         shape = tuple(sd[n].shape)
         a = 1.0 + 0.2 * rng.normal(size=shape) if "norm" in n else 0.05 * rng.normal(size=shape)
         sd[n] = torch.from_numpy(a.astype(np.float32))
-    path = str(tmp_path_factory.mktemp("recycle") / "recycle.npz")
+    root = tmp_path_factory.mktemp("recycle")
+    path = str(root / "recycle.npz")
     save_params_npz(path, sd, dtype=None)
-    return path, sd
+    yield path, sd
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_recycle_tensors_round_trip_the_bridge(recycle_npz):

@@ -18,6 +18,7 @@ poses, within rel 1e-5 of the tp=1 dock's RMSDs, and rank 0 alone writes.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -102,7 +103,8 @@ def runs(tmp_path_factory):
     torch.save({"state_dicts": sds, "inputs": inputs}, path)
     ref_out, ref_grads, _ = torch_ranks.stack_run(torch_ranks.build_stacks(sds), inputs)
     ranks = run_ranks(torch_ranks.tp_stacks, TP, args=(path,), rdv_dir=str(tmp / "rdv"))
-    return jax_out, ref_out, ref_grads, ranks
+    yield jax_out, ref_out, ref_grads, ranks
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _rel(a, ref):

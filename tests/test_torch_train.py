@@ -38,6 +38,7 @@ Optimizer state: max abs error <= 1e-6 of max|JAX| per tensor.
 """
 
 import os
+import shutil
 import re
 
 import jax
@@ -73,6 +74,15 @@ REL_OUT, REL_LOSS, REL_GRAD, GRAD_FLOOR = 1e-3, 1e-4, 1e-3, 1e-6
 ZERO_BY_SYMMETRY = re.compile(
     r"dit\.(atom_dit_encoder|token_dit|atom_dit_decoder)\.blocks\.\d+\.attention\.norm_z\.bias"
     r"|dit\.norm_r\.bias")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when the test ends: a train state or a
+    checkpoint written here takes hundreds of MB, and pytest keeps the
+    directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)
@@ -243,7 +253,8 @@ def cli_run(tmp_path_factory):
         "--crop_size", "32", "--atom_crop_size", "256", "--num_augmentation_sample", "2",
         "--total_steps", "2", "--save_every", "2", "--seed", "1", "--device", "cpu",
     ])
-    return summary, out
+    yield summary, out
+    shutil.rmtree(root, ignore_errors=True)  # the train state, ~360 MB
 
 
 def test_train_cli_cpu_runs_and_checkpoint_restores(cli_run):
