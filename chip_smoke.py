@@ -78,7 +78,8 @@ exits non-zero (no phase is caught):
   6. grad     -- one training step's loss and gradient of the toy model
                  (committed weights) on 5SAK_ZRY_A_1 featurized in training
                  mode at crop 128/1024 with 4 augmentation samples, the
-                 noise drawn from one CPU generator: on the card through
+                 noise drawn from the train step's keyed CPU streams
+                 (`train/draws.py`): on the card through
                  the kernels and on the CPU through the plain versions;
                  loss within rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||
                  over all parameters; rows 5, 6, 2 and 4 launched, rows 1
@@ -86,7 +87,7 @@ exits non-zero (no phase is caught):
                  tensor-core pair, the SIMT pair never; then the same for
                  one mini-rollout step of the model with the confidence
                  weights on the corrupt-pose route (alpha_pae 1), the
-                 corruption's draws from the same CPU generator: the same
+                 corruption's draws from its own keyed stream: the same
                  limits, and every confidence-head parameter with a
                  non-zero gradient on the card; then grad bf16: the plain
                  step in bf16 compute on the card against the fp32 step on
@@ -204,6 +205,14 @@ exits non-zero (no phase is caught):
                  rows 1-4 launched; top-1 within 0.5 A of the CPU
                  reading; both ranks' poses equal; rank 0 alone writes),
                  each beside its tp=1 run in this process
+ 9c. resume   -- a toy train run on the keyed draws at the gate's recipe
+                 (random weights from seed 0, bf16, 8 samples, lr 1e-3,
+                 warmup 100; 5SAK at crop 128/1024 featurized once) of 2
+                 steps, its train state saved and restored into a fresh
+                 model, then 2 more, against 4 steps in one call: every
+                 loss term of every step equal bit for bit, under
+                 torch.use_deterministic_algorithms (the index_select
+                 backward's atomic adds otherwise differ run to run)
  10. lockstep -- two ligand-systems of one shape (demo receptor 6kzd, two
                  demo SMILES, crop 256/2048, 20 poses each, guided, with a
                  different adaptive factor each) for 4 steps through the
@@ -252,6 +261,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -925,21 +935,24 @@ def featurize_train(path, crop, atom_crop, seed=0):
 def train_loss_and_grads(torch, feats, device, n_aug=4, seed=0, bf16=False):
     """Loss, loss terms and every parameter's gradient of one training
     forward of the toy model with the committed weights on `device`, in
-    fp32 or in bf16 compute (fp32 parameters and gradients)."""
+    fp32 or in bf16 compute (fp32 parameters and gradients); the draws
+    come from the train step's CPU streams keyed by `seed` (step 0,
+    system 0)."""
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.infer.pipeline import arrays_to_device
-    from physdock_tpu_torch.model.losses import physdock_loss
-    from physdock_tpu_torch.model.physdock import PhysDock
+    from physdock_tpu_torch.model.physdock import PhysDock, prepare_batch
     from physdock_tpu_torch.model.weights import load_jax_params
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import make_train_step
 
     cfg = PhysDockConfig.named("toy", inference_mode=False, num_augmentation_sample=n_aug,
                                bf16=bf16)
     model = PhysDock(cfg.model, dtype=cfg.dtypes.compute_dtype)
     load_jax_params(model, PARAMS)
     model = model.to(device)
-    batch = arrays_to_device(feats, device)
-    out = model(batch, torch.Generator().manual_seed(seed))
-    loss, logs = physdock_loss(out, batch, cfg.loss, sigma_data=cfg.model.sigma_data)
+    step = make_train_step(model, make_optimizer(), cfg.loss, sigma_data=cfg.model.sigma_data)
+    batch = prepare_batch(arrays_to_device(feats, device))
+    loss, logs = step.loss_fn(batch, step.draw_system(batch, seed, 0, 0))
     named = list(model.named_parameters())
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     grads = {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
@@ -950,8 +963,8 @@ def train_loss_and_grads(torch, feats, device, n_aug=4, seed=0, bf16=False):
 def mini_rollout_loss_and_grads(torch, feats, device, n_aug=4, seed=0):
     """Loss, loss terms and every parameter's gradient of one mini-rollout
     train step's system (corrupt-pose route, alpha_pae 1) of the model with
-    the committed confidence weights on `device`; the draws come from one
-    CPU generator."""
+    the committed confidence weights on `device`; the draws come from the
+    CPU streams keyed by `seed` (step 0, system 0)."""
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.infer.pipeline import arrays_to_device
     from physdock_tpu_torch.model.physdock import prepare_batch
@@ -964,7 +977,7 @@ def mini_rollout_loss_and_grads(torch, feats, device, n_aug=4, seed=0):
                            sigma_data=cfg.model.sigma_data, use_mini_rollout=True,
                            corrupt_rollout_pose=True)
     batch = prepare_batch(arrays_to_device(feats, device))
-    loss, logs = step.loss_fn(batch, step.draw_system(batch, torch.Generator().manual_seed(seed)))
+    loss, logs = step.loss_fn(batch, step.draw_system(batch, seed, 0, 0))
     named = list(model.named_parameters())
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     grads = {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
@@ -1884,7 +1897,7 @@ def _toy_step(torch, batch, mesh, n_aug):
     torch.cuda.reset_peak_memory_stats()
     _flash_lib.reset_launches()
     t0 = time.time()
-    state, logs = step(state, arrays_to_device(batch, "cuda"), torch.Generator().manual_seed(3))
+    state, logs = step(state, arrays_to_device(batch, "cuda"), 3)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     change = {q: {n: (t[n].detach().float() - (init[n] if q in ("params", "ema") else 0)).cpu()
@@ -1971,6 +1984,62 @@ def phase_dp(torch, work):
         check_tc_routes(f"dp rank {r}", res["routes"])
     log(f"[dp] single-process step {one['logs']} ({one['seconds']:.3f} s)")
     return ranks[0]["launches"]
+
+
+def phase_resume(torch, work):
+    """2 + 2 toy train steps through a checkpoint against 4 in one call,
+    on the keyed draws: the losses bit for bit (phase 9c)."""
+    import warnings
+
+    import numpy as np
+
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.infer.pipeline import arrays_to_device
+    from physdock_tpu_torch.nn.transformers import set_remat
+    from physdock_tpu_torch.train import checkpoint as ckpt_lib
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = PhysDockConfig.named("toy", bf16=True, num_augmentation_sample=8)
+    feats = featurize_train(os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz"), 128, 1024)
+    batch = arrays_to_device({k: np.asarray(v)[None] for k, v in feats.items()}, "cuda")
+    ckpt_dir = os.path.join(work, "resume_ckpt")
+
+    def run(steps, resume=None):
+        model = load_model(None, cfg, seed=0).to("cuda").train()
+        set_remat(model, False)
+        opt = make_optimizer(1e-3, 100)
+        state = init_train_state(model, opt)
+        if resume:
+            state = ckpt_lib.restore_train_state(resume, state)
+        step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data)
+        logs = []
+        while state.step < steps:
+            state, lg = step(state, batch, 0)
+            logs.append(lg)
+        return state, logs
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, one_call = run(4)
+            first, logs_a = run(2)
+            path = ckpt_lib.save_train_state(ckpt_dir, first, keep=1)
+            del first
+            _, logs_b = run(4, path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    windows = logs_a + logs_b
+    log(f"[resume] 4 steps in one call: {json.dumps(one_call)}")
+    log(f"[resume] 2 + 2 through {os.path.basename(path)}: {json.dumps(windows)}; "
+        f"ops without a deterministic version: {nondet}")
+    if windows != one_call or not all(math.isfinite(v) for lg in one_call for v in lg.values()):
+        fail("resume: 2 + 2 steps through a checkpoint differ from 4 steps in one call")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def _tp_dock(torch, out, tp):
@@ -2591,6 +2660,9 @@ def main():
     t0 = time.time()
     dp_launches = phase_dp(torch, work)
     log(f"[dp] done ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    phase_resume(torch, work)
+    log(f"[resume] done ({time.time() - t0:.2f} s)")
     t0 = time.time()
     tp_rank0, _, _, _ = phase_tp(torch, work)
     tp_train_launches = tp_rank0["step"]["launches"]

@@ -24,14 +24,15 @@ from the trunk's s and z, and `rffold_loss` adds the pLDDT, PAE and PDE
 losses.  Their gradients reach the trunk through s and z, as in the JAX
 package; the pose carries none.
 
-Every random draw of a system (its x_hat and t_hat, and the rollout's
-noise or the corruption's draws) comes from one CPU `torch.Generator`, in
-that order (`draw_system`), so a card run and a CPU run from one seed see
-the same numbers; `train_step(..., draws=...)` takes them given instead.
-Over dp every rank draws the systems of the whole global batch in order
-(the systems of one batch share their padded shapes) and keeps its own,
-so the dp=N step equals the dp=1 step on the same global batch, as the
-JAX step's fold of the global system index makes it there.
+Every random draw of a system comes from streams keyed by the run's seed,
+the step (`state.step`), the system's global index (`dp_rank * n_local +
+i`, the JAX step's fold) and the purpose (`train/draws.py`): its x_hat
+and t_hat from the forward's stream, the rollout's noise or the
+corruption's draws from their own, as the JAX step splits the system's
+key into `k_fwd` and `k_roll` (`draw_system`). Each rank draws its own
+systems only, the tp ranks of a replica alike, and the dp=N step equals
+the dp=1 step on the same global batch. `train_step(..., draws=...)`
+takes the draws given instead.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from physdock_tpu_torch.model.losses import physdock_loss, rffold_loss
 from physdock_tpu_torch.model.physdock import prepare_batch
 from physdock_tpu_torch.parallel.mesh import Mesh, all_reduce_
 from physdock_tpu_torch.parallel.tp import reduce_grads, use_tp
+from physdock_tpu_torch.train import draws as keyed
 from physdock_tpu_torch.train.corrupt import corrupt_pose_draws, corrupt_pose_from_draws
 from physdock_tpu_torch.train.optim import AdamState, Optimizer, clip_by_norm, ema_update
 from physdock_tpu_torch.utils.geometry import take_rows, uniform_random_rotation
@@ -89,27 +91,29 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                     sigma_data: float = 16.0, use_mini_rollout: bool = False,
                     mini_rollout_steps: int = 12, corrupt_rollout_pose: bool = False,
                     mesh: Optional[Mesh] = None):
-    """Build `train_step(state, batch, generator, draws=None) -> (state,
-    logs)`.
+    """Build `train_step(state, batch, seed, draws=None) -> (state, logs)`.
 
     batch: dict of tensors on the model's device with a leading axis of
     this rank's n_local systems (the global batch is the dp ranks' in
-    rank order; the tp ranks of a replica get the same systems);
-    `generator` (a CPU `torch.Generator`, seeded alike on every rank)
-    draws every system's noise, unless `draws` gives each system's of
-    the global batch (`draw_system`'s keys). logs are the global batch
-    means of the loss terms, as floats, the same on every rank."""
+    rank order; the tp ranks of a replica get the same systems); `seed`,
+    the run's, keys every system's draws with the step and the system's
+    global index, unless `draws` gives each system's of the global batch
+    (`draw_system`'s keys). logs are the global batch means of the loss
+    terms, as floats, the same on every rank."""
     dp = 1 if mesh is None else mesh.dp
     dp_rank = 0 if mesh is None else mesh.dp_rank
 
-    def draw_system(micro: Tree, generator) -> Dict:
-        x_hat, t_hat = model.augmentation_diffuse(micro, generator)
+    def draw_system(micro: Tree, seed: int, step: int, index: int) -> Dict:
+        """The draws of global system `index` in step `step` of the run
+        seeded `seed`."""
+        x_hat, t_hat = model.augmentation_diffuse(micro, keyed.stream(seed, step, index, "forward"))
         d = {"x_hat": x_hat, "t_hat": t_hat}
         n_atoms = micro["x_gt"].shape[-2]
         if use_mini_rollout and corrupt_rollout_pose:
-            d["corrupt"] = corrupt_pose_draws(generator, n_atoms)
+            d["corrupt"] = corrupt_pose_draws(keyed.stream(seed, step, index, "corrupt"), n_atoms)
         elif use_mini_rollout:
-            d["rollout"] = rollout_draws(generator, n_atoms, mini_rollout_steps)
+            d["rollout"] = rollout_draws(keyed.stream(seed, step, index, "rollout"), n_atoms,
+                                         mini_rollout_steps)
         return d
 
     def loss_fn(micro: Tree, d: Dict):
@@ -135,23 +139,24 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
         out.update(x_pred=x_pred, p_pae=p_pae, p_pde=p_pde, p_plddt=p_plddt)
         return rffold_loss(out, micro, loss_cfg, sigma_data=sigma_data, use_mini_rollout=True)
 
-    def train_step(state: TrainState, batch: Tree, generator: Optional[torch.Generator] = None,
+    def train_step(state: TrainState, batch: Tree, seed: Optional[int] = None,
                    draws: Optional[List[Dict]] = None):
         names = list(state.params)
         leaves = [state.params[n] for n in names]
         n_local = next(iter(batch.values())).shape[0]
         micros = [prepare_batch({k: v[i] for k, v in batch.items()}) for i in range(n_local)]
-        own = range(dp_rank * n_local, (dp_rank + 1) * n_local)
-        if draws is None:
-            # the whole global batch's draws, in order; another rank's
-            # system draws at the shapes of ours
-            draws = [draw_system(micros[i - own.start] if i in own else micros[0], generator)
-                     for i in range(n_local * dp)]
+        first = dp_rank * n_local
+        if draws is not None:
+            draws = draws[first:first + n_local]
+        elif seed is None:
+            raise ValueError("train_step needs the run's seed or the draws")
+        else:
+            draws = [draw_system(m, seed, state.step, first + i) for i, m in enumerate(micros)]
         grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in state.params.items()}
         logs_sum: Dict[str, torch.Tensor] = {}
         for i, micro in enumerate(micros):
             with use_tp(mesh):
-                loss, logs = loss_fn(micro, draws[own.start + i])
+                loss, logs = loss_fn(micro, draws[i])
                 g = torch.autograd.grad(loss, leaves, allow_unused=True)
             g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
             reduce_grads(g, mesh)

@@ -18,7 +18,10 @@ losses, seconds per step (the wait for the batch and its copy to the
 device included, the checkpoint save not), that wait alone, checkpoints
 and sampler retries.  Resumes from
 the newest checkpoint in the output dir, or starts from `--init_from_ckpt`
-(a train-state `.pt` or a JAX `.npz` parameter artifact).
+(a train-state `.pt` or a JAX `.npz` parameter artifact). The step's
+noise is keyed by `--seed`, the step and the system (`train/draws.py`),
+so a resumed run draws from the step it resumes at (the JAX trainer
+restarts its key chain from `PRNGKey(seed)`).
 Each process drives `cuda:{process_id % cards}` (the JAX package runs one
 process per host over all its chips); `--coordinator` starts the process
 group (NCCL, gloo with `--device cpu`). The `--batch_size` systems of a
@@ -151,7 +154,6 @@ def main(argv=None):
     batches = prefetch(batch_iterator(sampler, featurizer, args.batch_size // mesh.dp,
                                       args.crop_size, args.atom_crop_size))
     metrics = MetricsLogger(args.ckpt_dir) if writer else None
-    noise = torch.Generator().manual_seed(args.seed)
     summary = {"device": str(device), "start_step": state.step, "steps": [], "logs": [],
                "step_seconds": [], "wait_seconds": [], "checkpoints": []}
     try:
@@ -161,7 +163,7 @@ def main(argv=None):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t_wait = time.time() - t0
-            state, logs = train_step(state, batch, noise)
+            state, logs = train_step(state, batch, args.seed)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.time() - t0

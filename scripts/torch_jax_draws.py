@@ -16,6 +16,12 @@ Keys and uniform bits equal `jax.random`'s bit for bit; normals agree to
 float32 rounding (the `log1p` inside `erf_inv` is NumPy's, not XLA's).
 `tests/test_torch_jax_draws.py` holds both to `jax.random` on the CPU.
 
+With a mini-rollout the JAX step splits each system's key into the
+forward's and the rollout's (`k_fwd, k_roll`); `system_draws` does the
+same and adds the rollout's noise (`rollout_draws`: the sampler's stream
+per sample, split once per step) or the corrupted pose's draws
+(`corrupt_draws`) in the port's layouts.
+
 A diagnostic for the train-to-dock gate, not part of the package:
 `scripts/torch_overfit_gate.py --draws jax` feeds these draws to the
 port's train step through its `draws` argument.
@@ -153,21 +159,66 @@ def augmentation_draws(key, n: int, n_atoms: int, sigma_data: float) -> dict:
             "rot": uniform_random_rotation(kr, (n,)), "trans": normal(kt, (n, 3))}
 
 
-def system_draws(key, x_gt, x_exists, n: int, sigma_data: float) -> dict:
-    """One system's train-step draws {x_hat, t_hat} from its JAX key, as
-    torch tensors on x_gt's device: what `augmentation_diffuse` returns in
-    the JAX package, computed with the port's centre augmentation."""
+def rollout_draws(key, n_atoms: int, steps: int) -> dict:
+    """The draws of the JAX mini-rollout (`sample_diffusion` with one
+    sample, no guidance) from its key `k_roll`, in the port's
+    `noise_override` layout: the sample's stream `fold_in(key, 0)`, its
+    init noise from `fold_in(stream, 0)`, then per step `stream, k_aug,
+    k_churn = split(stream, 3)`, the centre augmentation's rotation and
+    translation from `split(k_aug)` and the churn noise from `k_churn`.
+    x_init_z [1, A, 3], aug_R [T, 1, 3, 3], aug_t [T, 1, 3], churn_z [T,
+    1, A, 3]."""
+    stream = fold_in(key, 0)
+    x_init = normal(fold_in(stream, 0), (n_atoms, 3))
+    rots, trans, churns = [], [], []
+    for _ in range(steps):
+        stream, k_aug, k_churn = split(stream, 3)
+        kr, kt = split(k_aug)
+        rots.append(uniform_random_rotation(kr, ()))
+        trans.append(normal(kt, (3,)))
+        churns.append(normal(k_churn, (n_atoms, 3)))
+    return {"x_init_z": x_init[None], "aug_R": np.stack(rots)[:, None],
+            "aug_t": np.stack(trans)[:, None], "churn_z": np.stack(churns)[:, None]}
+
+
+def corrupt_draws(key, n_atoms: int) -> dict:
+    """The five draws of the JAX `corrupt_pose` from its key `k_roll`
+    (`split(key, 5)`), in `corrupt_pose_from_draws`' keys."""
+    k_m, k_dir, k_rot, k_jl, k_jr = split(key, 5)
+    return {"u": uniform(k_m, ()), "direction": normal(k_dir, (3,)),
+            "rot": uniform_random_rotation(k_rot, ()),
+            "jitter_lig": normal(k_jl, (n_atoms, 3)), "jitter_rec": normal(k_jr, (n_atoms, 3))}
+
+
+def system_draws(key, x_gt, x_exists, n: int, sigma_data: float, mini_rollout_steps: int = 0,
+                 corrupt: bool = False) -> dict:
+    """One system's train-step draws from its JAX key, as `draw_system`
+    gives them: {x_hat, t_hat} on x_gt's device, what `augmentation_diffuse`
+    returns in the JAX package, computed with the port's centre
+    augmentation. With a mini-rollout (`mini_rollout_steps` > 0) the key
+    is split first, as the JAX step splits it (`k_fwd, k_roll`): x_hat
+    and t_hat come from `k_fwd`, and the rollout's noise (or with
+    `corrupt` the corrupted pose's draws), on the CPU, from `k_roll`."""
     import torch
 
     from physdock_tpu_torch.utils.geometry import apply_centre_augmentation
 
-    d = augmentation_draws(key, n, x_gt.shape[-2], sigma_data)
+    n_atoms = x_gt.shape[-2]
+    k_fwd, k_roll = split(key) if mini_rollout_steps else (key, None)
+    d = augmentation_draws(k_fwd, n, n_atoms, sigma_data)
     dev, dt = x_gt.device, x_gt.dtype
     t_hat = torch.from_numpy(d["t_hat"]).to(dev)
     x = x_gt[None] + torch.from_numpy(d["noise"]).to(dev, dt) * t_hat[:, None, None]
     x_hat = apply_centre_augmentation(x, x_exists, torch.from_numpy(d["rot"]).to(dev),
                                       torch.from_numpy(d["trans"]).to(dev, dt))
-    return {"x_hat": x_hat.detach(), "t_hat": t_hat}
+    out = {"x_hat": x_hat.detach(), "t_hat": t_hat}
+    if mini_rollout_steps and corrupt:
+        out["corrupt"] = {k: torch.from_numpy(np.asarray(v))
+                          for k, v in corrupt_draws(k_roll, n_atoms).items()}
+    elif mini_rollout_steps:
+        out["rollout"] = {k: torch.from_numpy(v)
+                          for k, v in rollout_draws(k_roll, n_atoms, mini_rollout_steps).items()}
+    return out
 
 
 class GateKeys:

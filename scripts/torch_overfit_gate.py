@@ -6,7 +6,9 @@ PoseBusters systems until it overfits them, then redock them through the
 whole guided pipeline (featurizer, trunk, EDM sampler, physics guidance,
 chirality, ranking, writers) with the EMA weights. Pass: the top-ranked
 ligand RMSD and the largest of the top-5 below 2 A on every system, the
-JAX gate's rule.
+JAX gate's rule, after all `--steps` (a window that stopped short writes
+its dock's verdicts, `pass_top_ranked` and `pass_all_top5`, and
+`"pass": false`).
 
 The recipe is the JAX gate's: crop 128/1024, 8 augmentation samples, lr
 1e-3 with 100 warmup steps, the systems featurized once in inference mode
@@ -23,15 +25,16 @@ Runs in resumable windows: the train state is saved every `--ckpt_every`
 steps (and when the window ends) under `OUT/ckpts`, and a later run
 resumes from the newest one; `--deadline_ts` (unix time) ends a window's
 training and goes on to the dock, so each window writes the gate file.
-The resume step is folded into the noise generator's and the MSA draw's
-seeds, so a resumed window does not replay the first one.
+The port's draws are keyed by (`--seed`, step): the train step's noise
+per system (`physdock_tpu_torch/train/draws.py`) and each step's MSA
+variants, so a run in windows draws exactly what one call draws.
 
-`--draws jax` replaces the port's noise generator by the JAX gate's own
-draws (`scripts/torch_jax_draws.py`: the same keys, t_hat, noise and
-centre augmentation as `scripts/overfit_gate.py` at the same `--seed`,
-the resume step folded in as it does), fed through the train step's
-`draws` argument: a diagnostic that makes the last input of training
-equal to the JAX gate's.
+`--draws jax` replaces the port's draws by the JAX gate's own
+(`scripts/torch_jax_draws.py`: the same keys, t_hat, noise and centre
+augmentation as `scripts/overfit_gate.py` at the same `--seed`, fed
+through the train step's `draws` argument, and its MSA variant stream),
+the resume step folded into both as the JAX gate folds it: a diagnostic
+that makes the last input of training equal to the JAX gate's.
 
     python scripts/torch_overfit_gate.py --deadline_ts $(( $(date +%s) + 3000 ))
     python scripts/torch_overfit_gate.py --device cpu --steps 4 --crop 64 \\
@@ -191,10 +194,9 @@ def main(argv=None):
     start_step = state.step
     train_step = make_train_step(model, optimizer, cfg.loss, sigma_data=cfg.model.sigma_data)
 
-    # a resumed window must not replay the first window's draws
-    noise = torch.Generator().manual_seed(args.seed * 1_000_003 + start_step)
-    rng = np.random.default_rng((args.seed, start_step))
     if args.draws == "jax":
+        # the JAX gate's streams: the window's start step folded in
+        msa_rng = np.random.default_rng((args.seed, start_step))
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import torch_jax_draws
 
@@ -214,6 +216,7 @@ def main(argv=None):
     def build_batch(step_i):
         members = group_idx[step_i % len(group_idx)]
         batch = {k: np.stack([np.asarray(feats_list[i][k]) for i in members]) for k in keys0}
+        rng = msa_rng if args.draws == "jax" else np.random.default_rng((args.seed, step_i))
         if all(msa_variants[i] for i in members):
             batch["msa_feat"] = np.stack(
                 [msa_variants[i][rng.integers(len(msa_variants[i]))] for i in members])
@@ -234,7 +237,7 @@ def main(argv=None):
                 break
             t0 = time.time()
             batch = build_batch(step_i)
-            state, logs = train_step(state, batch, noise, draws=step_draws(batch))
+            state, logs = train_step(state, batch, args.seed, draws=step_draws(batch))
             losses.append(logs["loss"])  # a float: the step has ended on the card
             step_s.append(time.time() - t0)
             terms_hist.append(logs)
@@ -288,7 +291,8 @@ def main(argv=None):
     ok_top = all(v["top_rmsd"] < 2.0 for v in results.values())
     ok_top5 = all(max(v["top5_rmsd"]) < 2.0 for v in results.values())
     out = {
-        "pass": ok_top and ok_top5,
+        # a window that stopped short of --steps is not a gate run at the recipe
+        "pass": ok_top and ok_top5 and state.step == args.steps,
         "pass_top_ranked": ok_top,
         "pass_all_top5": ok_top5,
         "steps": state.step,

@@ -3,8 +3,8 @@ train step over two gloo ranks (`parallel/launch.run_ranks`) and the
 train CLI in two processes.
 
   * the port's dp=2 step against its own dp=1 step on the same global
-    batch of two synthetic systems, each drawing its noise from a
-    generator of one seed: every parameter, Adam moment and EMA tensor
+    batch of two synthetic systems, each drawing its noise from the
+    streams keyed by one seed: every parameter, Adam moment and EMA tensor
     within rel 1e-6 (by tensor norm), the logs within rel 1e-6 (with the
     parity optimizer of tests/test_torch_dp.py);
   * the train CLI with --num_processes 2 (file:// rendezvous, gloo) for
@@ -67,7 +67,7 @@ def test_dp2_step_equals_dp1_step(tmp_path):
     opt = optim.make_optimizer(**PARITY_OPT)
     state = init_train_state(model, opt)
     step = make_train_step(model, opt, cfg.loss, ema_decay=0.5, sigma_data=cfg.model.sigma_data)
-    state, logs = step(state, _stack(singles), torch.Generator().manual_seed(11))
+    state, logs = step(state, _stack(singles), 11)
     want = {"params": state.params, "mu": state.opt_state.mu, "nu": state.opt_state.nu,
             "ema": state.ema_params}
     for r in ranks:

@@ -4,8 +4,11 @@ at crop 64/512 with 2 augmentation samples from random weights, then the
 4 demo systems redocked with the EMA weights (1 round of 2 poses, 4
 sampler steps), the gate file written to a temporary directory. Then a
 second window to step 5 resumes from the first window's train state, on
-the JAX gate's draws (`--draws jax`). Each window writes one checkpoint,
-at its end.
+the JAX gate's draws (`--draws jax`). The first run writes a checkpoint
+at steps 3 and 4, the second one at its end. Between them, a window in a
+directory of its own resumes from the first run's step-3 checkpoint on
+the port's keyed draws and trains to step 4: with the first run's own
+first 3 steps, a run in two windows.
 
 Checked: the gate file holds `OVERFIT_GATE.json`'s keys with this run's
 numbers (steps, crop, a result per system with its top-5 RMSDs, the pass
@@ -13,7 +16,8 @@ verdicts computed by the JAX gate's rule from them), the device and
 compute dtype (fp32 on the CPU), the SHA-256 of the EMA `.npz` it wrote,
 and one window record per run; the second window starts at step 4 and
 ends at 5 with the JAX draws in its recipe; the metrics log holds one line
-per step.
+per step. The run in two windows equals the one call bit for bit: every
+loss term of step 4 and the EMA weights it writes.
 """
 
 import hashlib
@@ -22,6 +26,7 @@ import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +55,7 @@ def test_gate_cpu_smoke_writes_the_gate_file_and_resumes(tmp_path):
     gate = _gate()
     out, gate_out = str(tmp_path / "work"), str(tmp_path / "gate.json")
     args = ["--device", "cpu", "--crop", "64", "--atom_crop", "512", "--aug", "2",
-            "--dock_rounds", "1", "--dock_poses", "2", "--dock_steps", "4", "--ckpt_every", "4",
+            "--dock_rounds", "1", "--dock_poses", "2", "--dock_steps", "4", "--ckpt_every", "3",
             "--out", out, "--gate_out", gate_out]
     res = gate.main(["--steps", "4", *args])
     with open(gate_out) as f:
@@ -72,7 +77,31 @@ def test_gate_cpu_smoke_writes_the_gate_file_and_resumes(tmp_path):
         assert saved["ema_npz_sha256"] == hashlib.sha256(f.read()).hexdigest()
     assert [(w["start_step"], w["end_step"]) for w in saved["windows"]] == [(0, 4)]
 
-    assert sorted(os.listdir(os.path.join(out, "ckpts"))) == ["step_00000004.pt"]
+    assert sorted(os.listdir(os.path.join(out, "ckpts"))) == ["step_00000003.pt",
+                                                             "step_00000004.pt"]
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        one_call = [json.loads(line) for line in f]
+    with np.load(os.path.join(out, "ema_params.npz")) as z:
+        one_call_ema = {k: z[k] for k in z.files}
+
+    # the second window of the same 4 steps, from the first run's step 3
+    out2 = str(tmp_path / "windows")
+    os.makedirs(os.path.join(out2, "ckpts"))
+    shutil.copy(os.path.join(out, "ckpts", "step_00000003.pt"), os.path.join(out2, "ckpts"))
+    res2 = gate.main(["--steps", "4", *[a if a != out else out2 for a in args]])
+    assert [(w["start_step"], w["end_step"]) for w in res2["windows"]] == [(3, 4)]
+    with open(os.path.join(out2, "scalars.jsonl")) as f:
+        windowed = [json.loads(line) for line in f]
+    assert [r["step"] for r in one_call] == [1, 2, 3, 4]
+    assert [r["step"] for r in windowed] == [4]
+    for a, b in zip(one_call[3:], windowed):
+        a.pop("time"), b.pop("time")
+        assert a == b, (a, b)
+    with np.load(os.path.join(out2, "ema_params.npz")) as z:
+        assert sorted(z.files) == sorted(one_call_ema)
+        for k in z.files:  # bit for bit
+            assert z[k].tobytes() == one_call_ema[k].tobytes(), k
+    assert res2["ema_npz_sha256"] == saved["ema_npz_sha256"]
 
     res = gate.main(["--steps", "5", "--draws", "jax", *args])
     assert [(w["start_step"], w["end_step"]) for w in res["windows"]] == [(0, 4), (4, 5)]

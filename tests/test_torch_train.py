@@ -40,6 +40,7 @@ Optimizer state: max abs error <= 1e-6 of max|JAX| per tensor.
 import os
 import shutil
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -368,12 +369,15 @@ def _jax_draws(jm, params, singles, key, corrupt):
     return draws
 
 
-def step_parity(npz, singles, with_confidence=False, loss_overrides=None, n_aug=2, seed=7):
+def step_parity(npz, singles, with_confidence=False, loss_overrides=None, n_aug=2, seed=7,
+                rollout_steps=0):
     """One train step at batch size len(singles), JAX and port, from the
     same weights and draws; returns (jax logs, port logs, {quantity: (JAX
     change, port change)}) with the changes of params, mu, nu and EMA as
     state_dicts. With the head, the step runs the mini-rollout on the
-    corrupt-pose route."""
+    corrupt-pose route, or with `rollout_steps` on the rollout route, its
+    draws then computed without JAX from the step's keys
+    (`scripts/torch_jax_draws.py::system_draws`)."""
     import dataclasses
 
     jcfg = JaxConfig.named("toy", num_augmentation_sample=n_aug)
@@ -383,12 +387,26 @@ def step_parity(npz, singles, with_confidence=False, loss_overrides=None, n_aug=
     p0 = _flat(params)
     key = jax.random.PRNGKey(seed)
     stacked = {k: np.stack([np.asarray(s[k]) for s in singles]) for k in singles[0]}
-    draws = _jax_draws(jm, params, singles, key, with_confidence)
+    corrupt = with_confidence and not rollout_steps
+    if rollout_steps:
+        sys.path.insert(0, os.path.join(REPO, "scripts"))
+        import torch_jax_draws as D
+        from physdock_tpu_torch.model.physdock import prepare_batch
+
+        draws = []
+        for i, single in enumerate(singles):
+            m = prepare_batch({k: torch.from_numpy(np.asarray(v)) for k, v in single.items()})
+            draws.append(D.system_draws(D.fold_in(D.prng_key(seed), i), m["x_gt"],
+                                        m["x_exists"], n_aug, jcfg.model.sigma_data,
+                                        rollout_steps))
+    else:
+        draws = _jax_draws(jm, params, singles, key, corrupt)
     mesh = make_mesh(dp=1, devices=jax.devices()[:1])
     jopt = jax_optim.make_optimizer(peak_lr=1e3, warmup_steps=1, eps=1.0)
     jstep = jax_step.make_train_step(
         jm, jopt, jloss, mesh, ema_decay=0.5, sigma_data=jcfg.model.sigma_data,
-        use_mini_rollout=with_confidence, corrupt_rollout_pose=with_confidence)
+        use_mini_rollout=with_confidence, corrupt_rollout_pose=corrupt,
+        mini_rollout_steps=rollout_steps or 12)
     jbatch = jax.device_put({k: jnp.asarray(v) for k, v in stacked.items()},
                             batch_sharding(mesh))
     with jax.default_matmul_precision("highest"):
@@ -405,8 +423,8 @@ def step_parity(npz, singles, with_confidence=False, loss_overrides=None, n_aug=
     state = init_train_state(model, topt)
     step = make_train_step(model, topt, dataclasses.replace(cfg.loss, **(loss_overrides or {})),
                            ema_decay=0.5, sigma_data=cfg.model.sigma_data,
-                           use_mini_rollout=with_confidence,
-                           corrupt_rollout_pose=with_confidence)
+                           use_mini_rollout=with_confidence, corrupt_rollout_pose=corrupt,
+                           mini_rollout_steps=rollout_steps or 12)
     state, logs = step(state, {k: torch.from_numpy(v) for k, v in stacked.items()},
                        draws=draws)
     assert state.step == 1 and state.opt_state.count == 1

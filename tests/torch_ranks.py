@@ -84,7 +84,7 @@ def dp_step(rank, world, path):
     """One train step of the toy model at dp = world on this rank's systems
     of the global batch; the state after it. With `draws` in the blob the
     step takes the given draws of the whole global batch, else it draws
-    them from a generator seeded alike on every rank."""
+    its own systems' from the run's seed."""
     from physdock_tpu_torch.train import optim
     from physdock_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -99,8 +99,7 @@ def dp_step(rank, world, path):
                            sigma_data=cfg.model.sigma_data, mesh=mesh)
     n_local = blob["batch"]["x_gt"].shape[0] // world
     local = {k: v[rank * n_local:(rank + 1) * n_local] for k, v in blob["batch"].items()}
-    gen = torch.Generator().manual_seed(blob["seed"])
-    state, logs = step(state, local, gen, draws=blob.get("draws"))
+    state, logs = step(state, local, blob["seed"], draws=blob.get("draws"))
     return {"logs": logs, "params": {n: p.detach() for n, p in state.params.items()},
             "mu": state.opt_state.mu, "nu": state.opt_state.nu, "ema": state.ema_params}
 
