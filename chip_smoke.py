@@ -213,6 +213,12 @@ exits non-zero (no phase is caught):
                  loss term of every step equal bit for bit, under
                  torch.use_deterministic_algorithms (the index_select
                  backward's atomic adds otherwise differ run to run)
+ 9d. graph    -- the same recipe and system, 4 steps with each system's
+                 forward and backward replayed as CUDA graphs
+                 (make_train_step(cuda_graph=True), the gate's step on
+                 the card) against 4 eager steps from one init, under
+                 torch.use_deterministic_algorithms: every loss term and
+                 every parameter bit for bit; then both steps' s/step
  10. lockstep -- two ligand-systems of one shape (demo receptor 6kzd, two
                  demo SMILES, crop 256/2048, 20 poses each, guided, with a
                  different adaptive factor each) for 4 steps through the
@@ -2042,6 +2048,59 @@ def phase_resume(torch, work):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def phase_graph(torch):
+    """The gate's step with each system's forward and backward replayed as
+    CUDA graphs (`make_train_step(cuda_graph=True)`) against the eager
+    step: 4 steps from one init under deterministic algorithms, every loss
+    term and every parameter bit for bit; then the s/step of both (phase
+    9d)."""
+    import numpy as np
+
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.infer.pipeline import arrays_to_device
+    from physdock_tpu_torch.nn.transformers import set_remat
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = PhysDockConfig.named("toy", bf16=True, num_augmentation_sample=8)
+    feats = featurize_train(os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz"), 128, 1024)
+    batch = arrays_to_device({k: np.asarray(v)[None] for k, v in feats.items()}, "cuda")
+
+    def run(steps, graph):
+        model = load_model(None, cfg, seed=0).to("cuda").train()
+        set_remat(model, False)
+        opt = make_optimizer(1e-3, 100)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data,
+                               cuda_graph=graph)
+        logs, secs = [], []
+        while state.step < steps:
+            t0 = time.time()
+            state, lg = step(state, batch, 0)
+            secs.append(time.time() - t0)
+            logs.append(lg)
+        return state, logs, secs
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, eager_logs, _ = run(4, False)
+        graphed, graph_logs, _ = run(4, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    params_equal = all(torch.equal(eager.params[n], graphed.params[n]) for n in eager.params)
+    log(f"[graph] 4 eager steps: {json.dumps(eager_logs)}")
+    log(f"[graph] 4 graphed steps: {json.dumps(graph_logs)}; parameters equal: {params_equal}")
+    if graph_logs != eager_logs or not params_equal:
+        fail("graph: the graphed step differs from the eager step")
+    del eager, graphed
+    timing = {}
+    for graph in (False, True):
+        _, _, secs = run(12, graph)
+        timing["graphed" if graph else "eager"] = float(np.mean(secs[2:]))
+    log(f"[graph] s/step (steps 3-12, 5SAK alone, one process): {json.dumps(timing)}")
+
+
 def _tp_dock(torch, out, tp):
     """The main dock's system and settings through DockingPipeline with
     SamplerSettings(tp=tp), featurized in process."""
@@ -2663,6 +2722,9 @@ def main():
     t0 = time.time()
     phase_resume(torch, work)
     log(f"[resume] done ({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    phase_graph(torch)
+    log(f"[graph] done ({time.time() - t0:.2f} s)")
     t0 = time.time()
     tp_rank0, _, _, _ = phase_tp(torch, work)
     tp_train_launches = tp_rank0["step"]["launches"]

@@ -33,6 +33,13 @@ key into `k_fwd` and `k_roll` (`draw_system`). Each rank draws its own
 systems only, the tp ranks of a replica alike, and the dp=N step equals
 the dp=1 step on the same global batch. `train_step(..., draws=...)`
 takes the draws given instead.
+
+With `cuda_graph` (one card, the plain step) the forward and backward of
+each system are CUDA graphs, one pair per input shape
+(`torch.cuda.make_graphed_callables` over `model.forward_noised`): the
+same kernels in the same order, replayed without the host's cost of some
+ten thousand launches a system. The loss (its Kabsch SVD synchronizes),
+the clips, Adam and the EMA stay eager. A CPU batch takes the eager path.
 """
 
 from __future__ import annotations
@@ -86,11 +93,24 @@ def rollout_draws(generator: Optional[torch.Generator], n_atoms: int, steps: int
     }
 
 
+class _Denoiser(torch.nn.Module):
+    """`model.forward_noised` over flat tensors (a graphed callable takes
+    only tensors), returning what the plain loss reads of it."""
+
+    def __init__(self, model, keys):
+        super().__init__()
+        self.model, self.keys = model, keys
+
+    def forward(self, x_hat, t_hat, *values):
+        out = self.model.forward_noised(dict(zip(self.keys, values)), x_hat, t_hat)
+        return out["x_denoised"], out["p_distogram"]
+
+
 def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                     per_replica_clip: float = 0.1, ema_decay: float = 0.999,
                     sigma_data: float = 16.0, use_mini_rollout: bool = False,
                     mini_rollout_steps: int = 12, corrupt_rollout_pose: bool = False,
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh] = None, cuda_graph: bool = False):
     """Build `train_step(state, batch, seed, draws=None) -> (state, logs)`.
 
     batch: dict of tensors on the model's device with a leading axis of
@@ -100,8 +120,29 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
     global index, unless `draws` gives each system's of the global batch
     (`draw_system`'s keys). logs are the global batch means of the loss
     terms, as floats, the same on every rank."""
+    if cuda_graph and (use_mini_rollout or mesh is not None):
+        raise ValueError("cuda_graph covers the plain step in one process")
     dp = 1 if mesh is None else mesh.dp
     dp_rank = 0 if mesh is None else mesh.dp_rank
+    graphed: Dict[tuple, object] = {}
+
+    def forward_noised(micro: Tree, x_hat, t_hat) -> Tree:
+        """The model's forward without its conditioning: eager, or the
+        graphed callable of this input shape (captured at its first call)."""
+        if not cuda_graph or x_hat.device.type != "cuda":
+            out = model.forward_noised(micro, x_hat, t_hat)
+            out.pop("conditioning")
+            return out
+        keys = sorted(micro)
+        values = (x_hat, t_hat, *(micro[k] for k in keys))
+        sig = tuple((tuple(v.shape), v.dtype) for v in values) + tuple(keys)
+        if sig not in graphed:
+            graphed[sig] = torch.cuda.make_graphed_callables(
+                _Denoiser(model, keys), tuple(v.clone() for v in values),
+                allow_unused_input=True)
+        x_denoised, p_distogram = graphed[sig](*values)
+        return {"x_denoised": x_denoised, "x_hat": x_hat, "t_hat": t_hat,
+                "p_distogram": p_distogram}
 
     def draw_system(micro: Tree, seed: int, step: int, index: int) -> Dict:
         """The draws of global system `index` in step `step` of the run
@@ -117,10 +158,11 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
         return d
 
     def loss_fn(micro: Tree, d: Dict):
+        if not use_mini_rollout:
+            out = forward_noised(micro, d["x_hat"], d["t_hat"])
+            return physdock_loss(out, micro, loss_cfg, sigma_data=sigma_data)
         out = model.forward_noised(micro, d["x_hat"], d["t_hat"])
         a, ap, s, z = out.pop("conditioning")
-        if not use_mini_rollout:
-            return physdock_loss(out, micro, loss_cfg, sigma_data=sigma_data)
         if corrupt_rollout_pose:
             # a corrupted GT pose instead of a rollout: spans the label bins
             # even when the denoiser is memorized

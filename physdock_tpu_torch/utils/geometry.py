@@ -50,7 +50,7 @@ def gen_attn_mask(mask, neg_inf: float):
     """Additive attention mask: 0 where mask != 0, neg_inf elsewhere."""
     return torch.where(
         mask == 0,
-        torch.tensor(neg_inf, dtype=mask.dtype, device=mask.device),
+        torch.full((), neg_inf, dtype=mask.dtype, device=mask.device),
         torch.zeros((), dtype=mask.dtype, device=mask.device),
     )
 

@@ -36,6 +36,12 @@ through the train step's `draws` argument, and its MSA variant stream),
 the resume step folded into both as the JAX gate folds it: a diagnostic
 that makes the last input of training equal to the JAX gate's.
 
+On the card the train step replays each system's forward and backward
+as CUDA graphs (`make_train_step(cuda_graph=True)`): the eager step's
+kernels in the same order (bit for bit under deterministic algorithms,
+`chip_smoke.py` phase 9d) without the host's cost of their launches, so
+that several gates can share one card. On the CPU the step is eager.
+
     python scripts/torch_overfit_gate.py --deadline_ts $(( $(date +%s) + 3000 ))
     python scripts/torch_overfit_gate.py --device cpu --steps 4 --crop 64 \\
         --atom_crop 512 --aug 2 --dock_rounds 1 --dock_poses 2   # CPU smoke
@@ -192,7 +198,9 @@ def main(argv=None):
         state = ckpt_lib.restore_train_state(resume, state)
         print(f"resumed at step {state.step} from {resume}", flush=True)
     start_step = state.step
-    train_step = make_train_step(model, optimizer, cfg.loss, sigma_data=cfg.model.sigma_data)
+    # graphed on the card (a CPU batch takes the eager step)
+    train_step = make_train_step(model, optimizer, cfg.loss, sigma_data=cfg.model.sigma_data,
+                                 cuda_graph=True)
 
     if args.draws == "jax":
         # the JAX gate's streams: the window's start step folded in
@@ -264,6 +272,7 @@ def main(argv=None):
               # the window's first step builds the kernels: steps 2.. only
               "s_per_step": float(np.mean(step_s[1:])) if len(step_s) > 1 else None,
               "first_step_s": step_s[0] if step_s else None, "peak_memory_bytes": peak,
+              "nproc": os.cpu_count(), "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
               "device": card}
     with open(os.path.join(args.out, "windows.jsonl"), "a") as f:
         f.write(json.dumps(window) + "\n")

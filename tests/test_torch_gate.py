@@ -14,9 +14,9 @@ Checked: the gate file holds `OVERFIT_GATE.json`'s keys with this run's
 numbers (steps, crop, a result per system with its top-5 RMSDs, the pass
 verdicts computed by the JAX gate's rule from them), the device and
 compute dtype (fp32 on the CPU), the SHA-256 of the EMA `.npz` it wrote,
-and one window record per run; the second window starts at step 4 and
-ends at 5 with the JAX draws in its recipe; the metrics log holds one line
-per step. The run in two windows equals the one call bit for bit: every
+and one window record per run (with the host's cores); the second
+window starts at step 4 and ends at 5 with the JAX draws in its recipe;
+the metrics log holds one line per step. The run in two windows equals the one call bit for bit: every
 loss term of step 4 and the EMA weights it writes.
 """
 
@@ -90,6 +90,7 @@ def test_gate_cpu_smoke_writes_the_gate_file_and_resumes(tmp_path):
     shutil.copy(os.path.join(out, "ckpts", "step_00000003.pt"), os.path.join(out2, "ckpts"))
     res2 = gate.main(["--steps", "4", *[a if a != out else out2 for a in args]])
     assert [(w["start_step"], w["end_step"]) for w in res2["windows"]] == [(3, 4)]
+    assert all(w["nproc"] == os.cpu_count() for w in saved["windows"] + res2["windows"])
     with open(os.path.join(out2, "scalars.jsonl")) as f:
         windowed = [json.loads(line) for line in f]
     assert [r["step"] for r in one_call] == [1, 2, 3, 4]

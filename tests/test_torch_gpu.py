@@ -24,7 +24,9 @@ launched), and the mini-rollout loss and gradient on the corrupt-pose
 route (loss rel 1e-4, ||g_card - g_cpu|| <= 1e-3 ||g_cpu||, rows 5-6 on
 the tensor-core pair); the rollout route's loss is finite.  Training at
 parity with the JAX trainer: a bf16 train step keeps fp32 parameters,
-Adam moments and EMA and launches every kernel in bf16; the trunk with
+Adam moments and EMA and launches every kernel in bf16; the same step
+with each system's forward and backward as CUDA graphs equals it bit for
+bit; the trunk with
 two recycles (non-zero recycle tensors) on the card within rel 1e-3 of
 the CPU; a reference release `params.pt` loads on the card to the `.npz`'s
 trunk, bit for bit.
@@ -562,12 +564,12 @@ NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 
                    "ema_params.npz")
 
 
-def _toy_batch(device, seed=4):
+def _toy_batch(device, seed=4, n_tokens=40, n_atoms=160):
     from physdock_tpu_torch.data.synthetic import make_synthetic_batch
     from physdock_tpu_torch.model.physdock import prepare_batch
 
-    batch = make_synthetic_batch(n_tokens=40, n_atoms=160, n_msa=4, n_ligand_tokens=8, seed=seed,
-                                 pad_tokens=8, pad_atoms=32)
+    batch = make_synthetic_batch(n_tokens=n_tokens, n_atoms=n_atoms, n_msa=4, n_ligand_tokens=8,
+                                 seed=seed, pad_tokens=8, pad_atoms=32)
     return prepare_batch({k: torch.from_numpy(np.array(v)).to(device) for k, v in batch.items()})
 
 
@@ -605,6 +607,47 @@ def test_bf16_train_step_on_card_keeps_fp32_state_and_launches_bf16():
     assert routes["fwd_lse_tc"] > 0 and routes["bwd_tc"] > 0, routes
     assert routes["fwd_lse_simt"] == 0 and routes["bwd_simt"] == 0, routes
 
+
+
+@pytest.mark.gpu
+def test_graphed_train_step_on_card_equals_eager():
+    """The bf16 toy step with each system's forward and backward replayed
+    as CUDA graphs (`make_train_step(cuda_graph=True)`) against the eager
+    step from one init, under deterministic algorithms: 3 steps over two
+    systems of different shapes (a graph each, the first one replayed
+    again in step 3), every loss term and every parameter bit for bit."""
+    _need_cuda()
+    from physdock_tpu_torch.cli.common import load_model
+    from physdock_tpu_torch.config import PhysDockConfig
+    from physdock_tpu_torch.train.optim import make_optimizer
+    from physdock_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = PhysDockConfig.named("toy", num_augmentation_sample=2, bf16=True)
+    batches = [{k: v[None] for k, v in _toy_batch("cuda", seed=s, n_tokens=n, n_atoms=a).items()}
+               for s, n, a in ((4, 40, 160), (5, 48, 192))]
+
+    def run(graph):
+        model = load_model(NPZ, cfg).to("cuda")
+        opt = make_optimizer()
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data,
+                               cuda_graph=graph)
+        logs = []
+        for i in range(3):
+            state, lg = step(state, batches[i % 2], 0)
+            logs.append(lg)
+        return state, logs
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, eager_logs = run(False)
+        graphed, graph_logs = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graph_logs == eager_logs
+    assert all(math.isfinite(v) for lg in eager_logs for v in lg.values())
+    for n, p in eager.params.items():
+        assert torch.equal(p, graphed.params[n]), n
 
 
 @pytest.mark.gpu
