@@ -135,28 +135,15 @@ exits non-zero (no phase is caught):
                  forward wrapper must have launched, and the top-ranked
                  RMSD must lie within 0.5 A of the CPU reading of both
                  packages
- 8a. profile  -- the main dock once more under utils/profiling.device_trace
-                 (torch.profiler, CPU and CUDA activity) with a PhaseTimer
-                 and record_function spans around load, trunk, bias cache,
-                 sampler, guidance and post-processing, and around each
-                 forward wrapper: the device's busy share of the dock, the
-                 top 10 device operations, the 5 longest idle gaps with the
-                 host phase at their middle, and per row 1-4 its launches
-                 in the trace (which must equal the launch counters) and
-                 the device ms of its kernels (by correlation id); the
-                 dock's FLOPs (utils/flops.estimate_dock_flops("toy", 256,
-                 2048, 40, 20) per round, times the rounds) and its MFU
-                 against the card's dense bf16 peak, on the main phase's
-                 wall; the trace gzipped under chiprun_out/profile/
- 8b. native   -- g++ of the native host library, then its four functions
+ 8a. native   -- g++ of the native host library, then its four functions
                  against their NumPy versions: perceive_bonds on the 8 demo
                  SMILES embedded (scales 1.17 and 1.25; the same pairs),
                  pairwise_rmsd and conformer_dist_bank on the ligand atoms
-                 of 20 of the profiled dock's poses (rel 1e-5 of the
+                 of 20 of the main dock's poses (rel 1e-5 of the
                  largest value), the A3M parse of a demo MSA feature file
                  written as A3M (equal, and equal to the features); each
                  one's seconds, native and NumPy
- 8c. demo     -- data/demo.make_demo_complex on the host, then the
+ 8b. demo     -- data/demo.make_demo_complex on the host, then the
                  redocking CLI on the card with the toy weights at the JAX
                  package's demo test settings (crop 64/256, 3 steps, 2
                  rounds of 2 poses, 4 conformers, physics correction and
@@ -246,9 +233,8 @@ exits non-zero (no phase is caught):
                  its launches in the confidence dock, in its head alone
                  and per mini-rollout train step, in the tp dock, the tp
                  train step and the dp step (rank 0), rows 3-4 their times
-                 at the head's sites, every row its tp sites, and rows
-                 1-4 their launches and device ms in the profiled main
-                 dock, `trace_main_dock`), the whole run's wall,
+                 at the head's sites, and every row its tp sites), the
+                 whole run's wall,
                  the card line, and last the {"ok": true, ...} line
 
 It imports nothing of JAX, starts no process other than nvcc, g++, nvidia-smi,
@@ -1476,8 +1462,24 @@ def phase_confidence(torch, work):
 
 
 def phase_main(work):
-    return dock(["-i", os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")],
-                os.path.join(work, "main"), 256, 2048)
+    """The main dock through the CLI: its results, and the poses and meta
+    its post-processing was given (the native phase's inputs)."""
+    from physdock_tpu_torch.infer.pipeline import DockingPipeline
+
+    post = DockingPipeline._postprocess
+    seen = []
+
+    def keep(self, feats, meta, poses, *args, **kw):
+        seen.append((poses, meta))
+        return post(self, feats, meta, poses, *args, **kw)
+
+    DockingPipeline._postprocess = keep
+    try:
+        res = dock(["-i", os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")],
+                   os.path.join(work, "main"), 256, 2048)
+    finally:
+        DockingPipeline._postprocess = post
+    return res, seen[-1]
 
 
 # -------------------------------------------------------------- screening
@@ -2248,238 +2250,7 @@ def phase_tp(torch, work):
 # -------------------------------------------------------------------- main
 
 
-# ------------------------------------------------------ profile, native, demo
-
-PROFILE_DIR = os.path.join(REPO, "chiprun_out", "profile")
-# the host phases of a dock: (owner module, class or None, attribute, phase)
-PROFILE_PHASES = (
-    ("physdock_tpu_torch.infer.pipeline", "DockingPipeline", "_load", "load"),
-    ("physdock_tpu_torch.model.physdock", "PhysDock", "conditioning", "trunk"),
-    ("physdock_tpu_torch.model.physdock", "PhysDock", "denoise_bias_cache", "bias_cache"),
-    ("physdock_tpu_torch.infer.pipeline", None, "sample_diffusion", "sampler"),
-    ("physdock_tpu_torch.infer.pipeline", "DockingPipeline", "_build_guidance", "guidance"),
-    ("physdock_tpu_torch.model.diffusion", None, "select_best_conformers", "guidance"),
-    ("physdock_tpu_torch.model.diffusion", None, "relax_positions", "guidance"),
-    ("physdock_tpu_torch.infer.pipeline", None, "chirality_correct", "guidance"),
-    ("physdock_tpu_torch.infer.pipeline", "DockingPipeline", "_postprocess", "post"),
-)
-# the four forward wrappers as the dispatcher calls them (rows 1-4)
-PROFILE_ROWS = ("flash_sdpa_folded_v3", "flash_sdpa_grouped", "flash_sdpa_folded_from_split",
-                "flash_sdpa")
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-class Spans:
-    """While installed, wraps each (owner, attr) in a `record_function`
-    span of its name (a host span in the trace) and, given a PhaseTimer,
-    in a phase of that name; `capture` keeps each call's arguments."""
-
-    def __init__(self, targets, timer=None, capture=()):
-        self.targets, self.timer, self.capture = targets, timer, set(capture)
-        self.calls = {}
-
-    def __enter__(self):
-        import contextlib
-
-        from torch.profiler import record_function
-
-        self.saved = []
-        for owner, attr, name in self.targets:
-            orig = getattr(owner, attr)
-
-            def wrapped(*args, _orig=orig, _name=name, **kw):
-                if _name in self.capture:
-                    self.calls.setdefault(_name, []).append((args, kw))
-                phase = self.timer.phase(_name) if self.timer else contextlib.nullcontext()
-                with phase, record_function(_name):
-                    return _orig(*args, **kw)
-
-            self.saved.append((owner, attr, orig))
-            setattr(owner, attr, wrapped)
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, orig in reversed(self.saved):
-            setattr(owner, attr, orig)
-
-
-def _merge(intervals):
-    out = []
-    for s, e in sorted(intervals):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
-def _kernel_name(name, width=80):
-    """A device operation's name without its argument list (a C++ kernel's
-    demangled name ends in one), cut to `width`."""
-    if name.endswith(")"):
-        depth = 0
-        for i in range(len(name) - 1, -1, -1):
-            depth += {")": 1, "(": -1}.get(name[i], 0)
-            if depth == 0:
-                name = name[:i]
-                break
-    return name[:width]
-
-
-def trace_split(events, phases):
-    """From a Chrome trace's events: the dock window (the outermost "dock"
-    span), the device's busy share of it, the top device operations, the
-    idle gaps by the innermost host phase at their middle, and per forward
-    row its launches (host spans) and device ms (the kernels whose launch
-    lies inside the row's spans, by correlation id)."""
-    import bisect
-
-    notes = [e for e in events if e.get("cat") == "user_annotation"]
-    docks = [e for e in notes if e["name"] == "dock"]
-    if not docks:
-        fail("profile: no dock span in the trace")
-    t0 = min(e["ts"] for e in docks)
-    t1 = max(e["ts"] + e["dur"] for e in docks)
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"
-           and t0 <= e["ts"] <= t1]
-    if not dev:
-        fail("profile: the trace holds no device operation in the dock")
-    busy = _merge([(e["ts"], e["ts"] + e["dur"]) for e in dev])
-    busy_us = sum(e - s for s, e in busy)
-    by_name = {}
-    for e in dev:
-        n = _kernel_name(e["name"])
-        tot, cnt = by_name.get(n, (0.0, 0))
-        by_name[n] = (tot + e["dur"], cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    # the innermost host phase between consecutive span edges (the spans nest)
-    spans = [e for e in notes if e["name"] in phases and t0 <= e["ts"] <= t1]
-    marks = sorted([(e["ts"], 1, i) for i, e in enumerate(spans)]
-                   + [(e["ts"] + e["dur"], 0, i) for i, e in enumerate(spans)])
-    edge_t, edge_phase, active = [], [], []
-    for t, opens, i in marks:
-        if opens:
-            active.append(i)
-        elif i in active:
-            active.remove(i)
-        edge_t.append(t)
-        edge_phase.append(spans[active[-1]]["name"] if active else "none")
-
-    def phase_at(t):
-        k = bisect.bisect_right(edge_t, t) - 1
-        return edge_phase[k] if k >= 0 else "none"
-
-    edges = [t0] + [x for s, e in busy for x in (s, e)] + [t1]
-    gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)
-                   if edges[i + 1] > edges[i]), reverse=True)
-    idle_by_phase = {}
-    for g, s in gaps:
-        p = phase_at(s + g / 2)
-        idle_by_phase[p] = idle_by_phase.get(p, 0.0) + g / 1e3
-    gap_rows = [{"ms": round(g / 1e3, 3), "at_ms": round((s - t0) / 1e3, 3),
-                 "phase": phase_at(s + g / 2)} for g, s in gaps[:5]]
-    # rows: host spans per wrapper, and their kernels by correlation id
-    calls = {}
-    for a in events:
-        if a.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in a["name"]:
-            calls.setdefault(a["tid"], []).append((a["ts"], a.get("args", {}).get("correlation")))
-    for v in calls.values():
-        v.sort(key=lambda x: x[0])
-    call_ts = {tid: [x[0] for x in v] for tid, v in calls.items()}
-    kernels = {e.get("args", {}).get("correlation"): e for e in dev if e.get("cat") == "kernel"}
-    rows = {}
-    for name in PROFILE_ROWS:
-        rs = [e for e in notes if e["name"] == name and t0 <= e["ts"] <= t1]
-        corr = set()
-        for r in rs:
-            ts, v = call_ts.get(r["tid"], []), calls.get(r["tid"], [])
-            lo, hi = bisect.bisect_left(ts, r["ts"]), bisect.bisect_right(ts, r["ts"] + r["dur"])
-            corr |= {c for _, c in v[lo:hi]}
-        ks = [kernels[c] for c in corr if c in kernels]
-        rows[name] = {"launches": len(rs), "kernels": len(ks),
-                      "device_ms": round(sum(k["dur"] for k in ks) / 1e3, 3) if ks else None}
-    return {"dock_ms": round((t1 - t0) / 1e3, 3), "busy_share": round(busy_us / (t1 - t0), 4),
-            "device_ms": round(busy_us / 1e3, 3),
-            "top_ops": [{"name": n, "ms": round(t / 1e3, 3), "count": c}
-                        for n, (t, c) in top],
-            "idle_gaps": gap_rows, "gaps": len(gaps),
-            "idle_ms_by_phase": {k: round(v, 3) for k, v in sorted(
-                idle_by_phase.items(), key=lambda kv: -kv[1])}, "rows": rows}
-
-
-def phase_profile(torch, work, main_wall, main_rounds):
-    """The main dock once more under `utils/profiling.device_trace` and a
-    PhaseTimer: the trace's split of the dock, and the dock's FLOPs and
-    MFU (`utils/flops.py`)."""
-    import gzip
-    import importlib
-
-    import numpy as np
-
-    from physdock_tpu_torch.ops import _flash_lib
-    from physdock_tpu_torch.ops import attention as attn
-    from physdock_tpu_torch.utils.flops import estimate_dock_flops, peak_flops_for
-    from physdock_tpu_torch.utils.profiling import TRACE_FILE, PhaseTimer, device_trace
-
-    timer = PhaseTimer()
-    targets = []
-    for mod, cls, attr, name in PROFILE_PHASES:
-        owner = importlib.import_module(mod)
-        targets.append((getattr(owner, cls) if cls else owner, attr, name))
-    pipe_cls = importlib.import_module("physdock_tpu_torch.infer.pipeline").DockingPipeline
-    targets += [(pipe_cls, "dock", "dock"), (pipe_cls, "dock_many", "dock")]
-    rows = [(attn, name, name) for name in PROFILE_ROWS]
-    torch.cuda.synchronize()
-    _flash_lib.reset_launches()
-    os.makedirs(PROFILE_DIR, exist_ok=True)
-    with Spans(targets, timer, capture=("post",)) as spans, Spans(rows):
-        t0 = time.time()
-        with device_trace(PROFILE_DIR):
-            res = dock(["-i", os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")],
-                       os.path.join(work, "profile"), 256, 2048)
-            torch.cuda.synchronize()
-        traced_wall = time.time() - t0
-    launches = dict(_flash_lib.LAUNCHES)
-    path = os.path.join(PROFILE_DIR, TRACE_FILE)
-    t0 = time.time()
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    split = trace_split(events, {n for *_, n in PROFILE_PHASES})
-    with open(path, "rb") as f, gzip.open(path + ".gz", "wb", compresslevel=1) as g:
-        g.write(f.read())
-    os.remove(path)
-    del events
-    for name, row in split["rows"].items():
-        want = launches[name if name != "flash_sdpa_folded_from_split" else "flash_sdpa_folded"]
-        if row["launches"] != want:
-            fail(f"profile: the trace holds {row['launches']} {name} spans, the launch "
-                 f"counter {want}")
-    flops = estimate_dock_flops("toy", 256, 2048, 40, 20)
-    dock_flops = flops["flops_per_system_round"] * main_rounds
-    kind = torch.cuda.get_device_name(0)
-    peak = peak_flops_for(kind)
-    mfu = None if peak is None else dock_flops / main_wall / peak
-    # the traced dock's own span: the profiler's start and its export lie outside it
-    mfu_traced = None if peak is None else dock_flops / (split["dock_ms"] / 1e3) / peak
-    log(f"[profile] host phases (nested: the sampler holds bias_cache and guidance):\n"
-        f"{timer.summary()}")
-    log("[profile] " + json.dumps({
-        "dock_ms": split["dock_ms"], "traced_wall_s": round(traced_wall, 3),
-        "busy_share": split["busy_share"], "device_ms": split["device_ms"],
-        "top_ops": split["top_ops"], "idle_gaps": split["idle_gaps"], "gaps": split["gaps"],
-        "idle_ms_by_phase": split["idle_ms_by_phase"],
-        "host_phase_s": {k: round(v, 3) for k, v in timer.totals.items()},
-        "flops_per_system_round": flops["flops_per_system_round"],
-        "cond_flops": flops["cond_flops"], "sample_flops": flops["sample_flops"],
-        "rounds": main_rounds, "dock_flops": dock_flops, "dock_dtype": "float32",
-        "peak_flops": peak, "peak_of": "bf16 dense", "mfu": mfu, "main_wall_s": round(main_wall, 3),
-        "mfu_traced": mfu_traced, "rows": split["rows"], "trace": path + ".gz",
-        "card": card_line()}))
-    log(f"[profile] trace parsed and written in {time.time() - t0:.2f} s")
-    if not all(math.isfinite(x) for x in res[0]["all_rmsd"]):
-        fail(f"profile dock gave non-finite poses: {res[0]['all_rmsd']}")
-    args, kw = spans.calls["post"][-1]
-    return split, np.asarray(args[3] if len(args) > 3 else kw["poses"]), args[2]
+# --------------------------------------------------------------- native, demo
 
 
 def phase_native(torch, poses, meta):
@@ -2673,7 +2444,7 @@ def main():
     torch.cuda.synchronize()
     _flash_lib.reset_launches()
     t0 = time.time()
-    res = phase_main(work)
+    res, (main_poses, main_meta) = phase_main(work)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_flash_lib.LAUNCHES)
@@ -2695,10 +2466,7 @@ def main():
              f"of the CPU reading {MAIN_RMSD_REF} A")
 
     t0 = time.time()
-    split, prof_poses, prof_meta = phase_profile(torch, work, wall, res[0]["rounds"])
-    log(f"[profile] done ({time.time() - t0:.2f} s)")
-    t0 = time.time()
-    phase_native(torch, prof_poses, prof_meta)
+    phase_native(torch, main_poses, main_meta)
     log(f"[native] done ({time.time() - t0:.2f} s)")
     t0 = time.time()
     phase_demo(torch, work)
@@ -2779,8 +2547,6 @@ def main():
             "tp_dock_launches": tp_dock_launches[name],
             "tp_train_launches": tp_train_launches[name],
             "dp_train_launches": dp_launches[name],
-            "trace_main_dock": split["rows"][
-                "flash_sdpa_folded_from_split" if name == "flash_sdpa_folded" else name],
         })
         for tag, (site_name, _) in (("screen", SCREEN_SITE), ("redock", REDOCK_SITE)):
             if name == site_name:

@@ -71,6 +71,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--confidence_ranking", action="store_true",
                    help="rank poses by 0.8*ipTM + 0.2*pTM - has_clash instead of geometric "
                         "KMeans medoids (implies --enable_confidence)")
+    p.add_argument("--trace_dir", default=None,
+                   help="write a torch.profiler trace of the docking to DIR/trace.json "
+                        "(Perfetto): host and card activity with the program's physdock.* "
+                        "spans")
 
 
 def build_pipeline(args):

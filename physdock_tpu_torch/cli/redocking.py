@@ -32,6 +32,7 @@ import torch
 
 from physdock_tpu_torch.cli.common import add_common_flags, build_pipeline
 from physdock_tpu_torch.utils.io import dump_json
+from physdock_tpu_torch.utils.profiling import device_trace
 
 
 def names_the_card(e: BaseException) -> bool:
@@ -80,7 +81,8 @@ def main(argv=None):
         todo.append(sys_pkl)
     pipe = build_pipeline(args)
     try:
-        results = _dock_all(pipe, args, todo)
+        with device_trace(args.trace_dir if pipe.writes else None):
+            results = _dock_all(pipe, args, todo)
     finally:
         pipe.close()
     dump_json(results, os.path.join(args.output_dir, "summary.json"))

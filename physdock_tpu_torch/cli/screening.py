@@ -19,6 +19,7 @@ import os
 
 from physdock_tpu_torch.cli.common import add_common_flags, build_pipeline
 from physdock_tpu_torch.utils.io import dump_json, load_txt
+from physdock_tpu_torch.utils.profiling import device_trace
 
 
 def main(argv=None):
@@ -46,8 +47,9 @@ def main(argv=None):
               flush=True)
     pipe = build_pipeline(args)
     try:
-        results = pipe.screen(args.input_pkl, smiles, args.output_dir,
-                              batch_size=args.vs_batch_size)
+        with device_trace(args.trace_dir if pipe.writes else None):
+            results = pipe.screen(args.input_pkl, smiles, args.output_dir,
+                                  batch_size=args.vs_batch_size)
     finally:
         pipe.close()
     name = ("screening_results.json" if args.num_shards == 1

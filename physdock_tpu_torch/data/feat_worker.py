@@ -51,6 +51,8 @@ import traceback
 from collections import deque
 from typing import Optional
 
+from physdock_tpu_torch.utils.profiling import span
+
 
 def _send(f, obj) -> None:
     data = pickle.dumps(obj, protocol=4)
@@ -294,21 +296,24 @@ def featurize(fz, system, kw, num_confs=None, conf_seed=0, compact=False):
     given: what the worker ships, and what the pipeline docks."""
     import numpy as np
 
-    feats, meta = fz.load(system, **kw)
+    with span("physdock.load.features"):
+        feats, meta = fz.load(system, **kw)
     if compact:
         from physdock_tpu_torch.model.compact import compact_batch_np, compact_msa_np
 
-        feats = compact_batch_np(feats)
-        bm = meta.pop("batch_msa_feat", None)
-        if bm is not None:
-            meta["batch_msa_feat_c"] = [compact_msa_np(m) for m in bm]
+        with span("physdock.load.compact"):
+            feats = compact_batch_np(feats)
+            bm = meta.pop("batch_msa_feat", None)
+            if bm is not None:
+                meta["batch_msa_feat_c"] = [compact_msa_np(m) for m in bm]
     confs = None
     mol = meta.get("ref_mol")
     if num_confs and mol is not None:
         from physdock_tpu_torch.data.embed import generate_conformers
 
-        confs = generate_conformers(mol, num_confs=num_confs, base_coords=mol.coords,
-                                    rng=np.random.default_rng(conf_seed))
+        with span("physdock.load.conformers"):
+            confs = generate_conformers(mol, num_confs=num_confs, base_coords=mol.coords,
+                                        rng=np.random.default_rng(conf_seed))
     return feats, meta, confs
 
 

@@ -68,6 +68,7 @@ from physdock_tpu_torch.ops import _flash_lib
 from physdock_tpu_torch.parallel import mesh as mesh_lib
 from physdock_tpu_torch.parallel.tp import enable_tp
 from physdock_tpu_torch.utils.io import dump_json, md5_string
+from physdock_tpu_torch.utils.profiling import span
 
 
 def _json_safe(d: Dict) -> Dict:
@@ -195,6 +196,7 @@ class DockingPipeline:
             meta["_conf_bank"] = confs
         return feats, meta
 
+    @span("physdock.load")
     def _load(self, system, **kw):
         """One system's (feats, meta) in the compact transport form, the one
         form the pipeline docks, featurized in this process: a load the
@@ -218,15 +220,17 @@ class DockingPipeline:
         for sysp in rest:
             self.featurizer.submit(sysp, **self._worker_kwargs(), **kw)
         for i, sysp in enumerate(systems):
-            if i == 0 or not rest:
-                yield self._load(sysp, **kw)
-                continue
-            feats, meta = self._with_bank(self.featurizer.result())
-            meta["_recv_detail"] = dict(self.featurizer.last_recv,
-                                        worker_s=meta.get("_worker_time_s"),
-                                        cache=meta.get("_feat_cache", "miss"))
+            with span("physdock.load_wait"):
+                if i == 0 or not rest:
+                    feats, meta = self._load(sysp, **kw)
+                else:
+                    feats, meta = self._with_bank(self.featurizer.result())
+                    meta["_recv_detail"] = dict(self.featurizer.last_recv,
+                                                worker_s=meta.get("_worker_time_s"),
+                                                cache=meta.get("_feat_cache", "miss"))
             yield feats, meta
 
+    @span("physdock.guidance.build")
     def _build_guidance(self, batch, meta, pad_atoms: Optional[int] = None):
         """Returns (PhysicsGuidance template, original conformer bank); the
         guidance's conformer arrays are bank-shaped ([max_samples, L, ...])
@@ -327,7 +331,8 @@ class DockingPipeline:
                 results.append(ctx)
         # FIFO: every load response has drained before the first post one
         for ctx, out_dir in pending:
-            post = self.featurizer.result()
+            with span("physdock.post_wait"):
+                post = self.featurizer.result()
             res = self._postprocess(ctx["feats"], ctx["meta"], ctx["poses"], out_dir,
                                     remove_ligand=remove_ligand, smi=smi,
                                     rounds_run=ctx["rounds_run"], t_feat=ctx["t_feat"],
@@ -382,16 +387,18 @@ class DockingPipeline:
         return results
 
     @torch.no_grad()
+    @span("physdock.dock")
     def _dock_loaded(self, loaded, output_dir: str, *, remove_ligand: bool,
                      smi: Optional[str], write_outputs: bool, t_start: float,
                      defer_post: bool = False) -> Dict:
         s = self.s
         feats, meta = loaded
         t_loaded = time.time()
-        batch = self._to_device(feats)
-        batch_msa_feat = meta.pop("batch_msa_feat_c", None)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("physdock.upload"):
+            batch = self._to_device(feats)
+            batch_msa_feat = meta.pop("batch_msa_feat_c", None)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         t_upload = time.time()
         guidance, conf_bank = (
             self._build_guidance(batch, meta) if s.enable_physics_correction else (None, None)
@@ -451,16 +458,16 @@ class DockingPipeline:
                 mmff_gamma_0_factor=protocol.factor if guided else s.eta,
                 mmff_iters=s.mmff_iters, align_ref_pos=use_bank, conditioning=conditioning,
             )
-            if g is not None and g.ff is not None:
-                lig = x_t[:, g.ligand_idx.clamp(max=x_t.shape[-2] - 1)]
-                ok = chirality_correct(lig, g.ff)
-            else:
-                ok = torch.ones((x_t.shape[0],), dtype=torch.bool)
-            x, ok = x_t.float().cpu().numpy(), ok.cpu().numpy()
-            if not guided:
-                break
-            protocol.update(x, x[:, lig_idx], ok)
-            if protocol.done:
+            with span("physdock.round_end"):
+                if g is not None and g.ff is not None:
+                    lig = x_t[:, g.ligand_idx.clamp(max=x_t.shape[-2] - 1)]
+                    ok = chirality_correct(lig, g.ff)
+                else:
+                    ok = torch.ones((x_t.shape[0],), dtype=torch.bool)
+                x, ok = x_t.float().cpu().numpy(), ok.cpu().numpy()
+                if guided:
+                    protocol.update(x, x[:, lig_idx], ok)
+            if not guided or protocol.done:
                 break
         poses = protocol.final_poses() if guided else x[: s.max_samples]
         conf_metrics = rank_scores = None
@@ -513,6 +520,7 @@ class DockingPipeline:
             compute_rmsd=bool(len(lig_idx)) and not remove_ligand and smi is None,
         )
 
+    @span("physdock.post")
     def _postprocess(self, feats, meta, poses: np.ndarray, output_dir: str, *,
                      remove_ligand: bool, smi: Optional[str], rounds_run: int,
                      t_feat: float, t_start: float, write_outputs: bool, post=None,
@@ -532,8 +540,9 @@ class DockingPipeline:
                     return np.stack([relax_complex(a, meta) for a in aligned])
 
             args = self._post_args(feats, meta, remove_ligand, smi)
-            post = ranking_lib.postprocess_poses(poses, args.pop("x_gt"), relax_fn=relax_fn,
-                                                 rank_scores=rank_scores, **args)
+            with span("physdock.post.rank"):
+                post = ranking_lib.postprocess_poses(poses, args.pop("x_gt"), relax_fn=relax_fn,
+                                                     rank_scores=rank_scores, **args)
         aligned, order, lig_rmsds = post
         result = {
             "system_id": meta["system_id"],
@@ -550,28 +559,29 @@ class DockingPipeline:
         if conf_metrics is not None:
             # rank-ordered, so confidence[0] belongs to pred_rank0
             result["confidence"] = [conf_metrics[i] for i in order]
-        if write_outputs and self.writes:
-            os.makedirs(output_dir, exist_ok=True)
-            writers.write_pdb(x_gt, meta, os.path.join(output_dir, "gt.pdb"))
-            for rank, idx in enumerate(order[:5]):
-                writers.write_pdb(aligned[idx], meta,
-                                  os.path.join(output_dir, f"pred_rank{rank}.pdb"))
-                if len(lig_idx):
-                    writers.write_ligand_sdf(
-                        aligned[idx], meta, os.path.join(output_dir, f"ligand_rank{rank}.sdf"),
-                        name=f"{meta['system_id']}_rank{rank}")
-            if lig_rmsds:
-                dump_json({"top5_rmsd": lig_rmsds[:5], "rank_order": order},
-                          os.path.join(output_dir, "top5_rmsd.json"))
-            if conf_metrics is not None:
-                dump_json(result["confidence"], os.path.join(output_dir, "confidence.json"))
-            if len(lig_idx) and meta.get("ref_mol") is not None:
-                # per-pose validity verdicts for the written top-5, the
-                # native equivalent of the reference's PoseBusters table
-                # (data/relaxation.py:29-50 get_bust_results)
-                report = [{"rank": rank, **_json_safe(check_pose(aligned[idx], meta))}
-                          for rank, idx in enumerate(order[:5])]
-                dump_json(report, os.path.join(output_dir, "bust_report.json"))
+        with span("physdock.post.write"):
+            if write_outputs and self.writes:
+                os.makedirs(output_dir, exist_ok=True)
+                writers.write_pdb(x_gt, meta, os.path.join(output_dir, "gt.pdb"))
+                for rank, idx in enumerate(order[:5]):
+                    writers.write_pdb(aligned[idx], meta,
+                                      os.path.join(output_dir, f"pred_rank{rank}.pdb"))
+                    if len(lig_idx):
+                        writers.write_ligand_sdf(
+                            aligned[idx], meta, os.path.join(output_dir, f"ligand_rank{rank}.sdf"),
+                            name=f"{meta['system_id']}_rank{rank}")
+                if lig_rmsds:
+                    dump_json({"top5_rmsd": lig_rmsds[:5], "rank_order": order},
+                              os.path.join(output_dir, "top5_rmsd.json"))
+                if conf_metrics is not None:
+                    dump_json(result["confidence"], os.path.join(output_dir, "confidence.json"))
+                if len(lig_idx) and meta.get("ref_mol") is not None:
+                    # per-pose validity verdicts for the written top-5, the
+                    # native equivalent of the reference's PoseBusters table
+                    # (data/relaxation.py:29-50 get_bust_results)
+                    report = [{"rank": rank, **_json_safe(check_pose(aligned[idx], meta))}
+                              for rank, idx in enumerate(order[:5])]
+                    dump_json(report, os.path.join(output_dir, "bust_report.json"))
         return result
 
     # ------------------------------------------------------------ screening
@@ -649,6 +659,7 @@ class DockingPipeline:
         return res
 
     @torch.no_grad()
+    @span("physdock.dock")
     def _run_group_batched(self, items, out_dirs, *, remove_ligand: bool, smis,
                            write_outputs: bool, t_start: float,
                            gt_ligs=None) -> Optional[List[Dict]]:
@@ -678,8 +689,9 @@ class DockingPipeline:
                               num_samples_per_round=s.num_samples_per_round, eta_start=s.eta,
                               gt_ligand=None if gt_ligs is None else gt_ligs[b])
                 for b, (_, confs) in enumerate(built)]
-        stacked = self._to_device({k: np.stack([np.asarray(f[k]) for f, _ in items])
-                                   for k in items[0][0]})
+        with span("physdock.upload"):
+            stacked = self._to_device({k: np.stack([np.asarray(f[k]) for f, _ in items])
+                                       for k in items[0][0]})
         gen = torch.Generator(device=self.device).manual_seed(s.seed)
         t_feat = time.time() - t_start
         timings = {"guidance_s": round(time.time() - t0, 3)}
@@ -716,13 +728,14 @@ class DockingPipeline:
                 karras_rho=s.rho, guidance=g,
                 mmff_gamma_0_factor=[p.factor for p in protocols] if guided else [s.eta] * n,
                 mmff_iters=s.mmff_iters, align_ref_pos=use_bank, conditioning=conds)
-            x = x_t.float().cpu().numpy()  # [n, S, A, 3]
-            if not guided:
-                break
-            ok = chirality_correct(gather_ligand(x_t, guidance), guidance.ff).cpu().numpy()
-            for b in range(n):
-                protocols[b].update(x[b], x[b][:, lig_idxs[b]], ok[b])
-            if all(p.done for p in protocols):
+            with span("physdock.round_end"):
+                x = x_t.float().cpu().numpy()  # [n, S, A, 3]
+                if guided:
+                    ok = chirality_correct(gather_ligand(x_t, guidance),
+                                           guidance.ff).cpu().numpy()
+                    for b in range(n):
+                        protocols[b].update(x[b], x[b][:, lig_idxs[b]], ok[b])
+            if not guided or all(p.done for p in protocols):
                 break
         timings["rounds_s"] = round(time.time() - t_start - t_feat, 3)
         all_poses = [protocols[b].final_poses() if guided else x[b][: s.max_samples]
@@ -732,7 +745,8 @@ class DockingPipeline:
             for b, (feats, meta) in enumerate(items):
                 self.featurizer.submit_post(
                     all_poses[b], self._post_args(feats, meta, remove_ligand, smis[b]))
-            posts = [self.featurizer.result() for _ in range(n)]
+            with span("physdock.post_wait"):
+                posts = [self.featurizer.result() for _ in range(n)]
         out: List[Dict] = []
         for b, (feats, meta) in enumerate(items):
             r = self._postprocess(feats, meta, all_poses[b], out_dirs[b],

@@ -36,6 +36,7 @@ from physdock_tpu_torch.utils.geometry import (
     uniform_random_rotation,
     weighted_rigid_align,
 )
+from physdock_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -146,6 +147,7 @@ def stacked_conditioning(model, batch: Batch) -> Tuple:
 
 
 @torch.no_grad()
+@span("physdock.sampler")
 def sample_diffusion_batched(
     model,
     batch: Batch,
@@ -225,59 +227,64 @@ def sample_diffusion_batched(
     conf_sel, ff_sel = torch.tensor([conf_on, ff_on], device=dev).reshape(2, steps, n_sys)
     traj = []
     for i in range(steps):
-        t_cur, t_next = sigmas[i], sigmas[i + 1]
-        t_cur_f = float(sig_np[i])
-        if noise_override is not None:
-            rot = mine(noise_override["aug_R"][:, i]).to(dev).float()
-            trans = mine(noise_override["aug_t"][:, i]).to(dev).float()
-        else:  # centre_random_augmentation's draws, for every pose
-            rot = mine(uniform_random_rotation(full, generator, dev))
-            trans = mine(torch.randn(full + (3,), generator=generator, device=dev,
-                                     dtype=x_next.dtype))
-        x_cur = apply_centre_augmentation(x_next, exists, rot, trans)
-
-        churn = t_cur_f > gamma_min
-        if churn:
-            t_hat_churn = t_cur * (gamma_0 + 1.0)
+        with span("physdock.sampler.step"):
+            t_cur, t_next = sigmas[i], sigmas[i + 1]
+            t_cur_f = float(sig_np[i])
             if noise_override is not None:
-                noise = mine(noise_override["churn_z"][:, i]).to(dev).to(x_cur.dtype)
+                rot = mine(noise_override["aug_R"][:, i]).to(dev).float()
+                trans = mine(noise_override["aug_t"][:, i]).to(dev).float()
+            else:  # centre_random_augmentation's draws, for every pose
+                rot = mine(uniform_random_rotation(full, generator, dev))
+                trans = mine(torch.randn(full + (3,), generator=generator, device=dev,
+                                         dtype=x_next.dtype))
+            x_cur = apply_centre_augmentation(x_next, exists, rot, trans)
+
+            churn = t_cur_f > gamma_min
+            if churn:
+                t_hat_churn = t_cur * (gamma_0 + 1.0)
+                if noise_override is not None:
+                    noise = mine(noise_override["churn_z"][:, i]).to(dev).to(x_cur.dtype)
+                else:
+                    noise = mine(torch.randn(full + (num_atoms, 3), generator=generator, device=dev,
+                                             dtype=x_cur.dtype))
+                ksi = noise_scale_lambda * noise * torch.sqrt(
+                    torch.clamp(t_hat_churn**2 - t_cur**2, min=0.0))
+                t_hat = t_hat_churn * torch.ones(shape, device=dev)
+                x_hat = x_cur + ksi
             else:
-                noise = mine(torch.randn(full + (num_atoms, 3), generator=generator, device=dev,
-                                         dtype=x_cur.dtype))
-            ksi = noise_scale_lambda * noise * torch.sqrt(
-                torch.clamp(t_hat_churn**2 - t_cur**2, min=0.0))
-            t_hat = t_hat_churn * torch.ones(shape, device=dev)
-            x_hat = x_cur + ksi
-        else:
-            t_hat = t_cur * torch.ones(shape, device=dev)
-            x_hat = x_cur
+                t_hat = t_cur * torch.ones(shape, device=dev)
+                x_hat = x_cur
 
-        x_denoised = model.denoise(batch, x_hat, t_hat, a, ap, s, z, bias_cache)
-        th = t_hat[..., None, None]
-        d_cur = (x_hat - x_denoised) / th
+            x_denoised = model.denoise(batch, x_hat, t_hat, a, ap, s, z, bias_cache)
+            th = t_hat[..., None, None]
+            d_cur = (x_hat - x_denoised) / th
 
-        use_conf, use_ff = conf_sel[i], ff_sel[i]
-        target = None
-        if any(conf_on[i]):
-            _, best_conf = select_best_conformers(gather_ligand(x_denoised, guidance), guidance)
-            new_ref = _scatter_ligand(batch_ref_pos, best_conf, guidance)
-            batch_ref_pos = _where_systems(use_conf, new_ref, batch_ref_pos)
-            target = batch_ref_pos
-        if any(ff_on[i]):
-            lig_relaxed = relax_positions(gather_ligand(x_denoised, guidance), guidance.ff,
-                                          iters=mmff_iters)
-            x_ref_ff = _scatter_ligand(x_denoised, lig_relaxed, guidance)
-            target = x_ref_ff if target is None else _where_systems(
-                use_conf, batch_ref_pos, x_ref_ff)
-        if target is not None:
-            ligand_denoised = weighted_rigid_align(x_denoised * exists[..., None], target,
-                                                   is_ligand_atom)
-            d_lig = (x_hat - ligand_denoised) / th * w
-            d_guided = d_cur * (1.0 - w) + d_lig
-            d_cur = _where_systems(use_conf | use_ff, d_guided, d_cur)
+            use_conf, use_ff = conf_sel[i], ff_sel[i]
+            target = None
+            if any(conf_on[i]):
+                with span("physdock.step.conformers"):
+                    _, best_conf = select_best_conformers(gather_ligand(x_denoised, guidance),
+                                                          guidance)
+                    new_ref = _scatter_ligand(batch_ref_pos, best_conf, guidance)
+                    batch_ref_pos = _where_systems(use_conf, new_ref, batch_ref_pos)
+                target = batch_ref_pos
+            if any(ff_on[i]):
+                with span("physdock.step.relax"):
+                    lig_relaxed = relax_positions(gather_ligand(x_denoised, guidance), guidance.ff,
+                                                  iters=mmff_iters)
+                    x_ref_ff = _scatter_ligand(x_denoised, lig_relaxed, guidance)
+                target = x_ref_ff if target is None else _where_systems(
+                    use_conf, batch_ref_pos, x_ref_ff)
+            if target is not None:
+                with span("physdock.step.align"):
+                    ligand_denoised = weighted_rigid_align(x_denoised * exists[..., None], target,
+                                                           is_ligand_atom)
+                    d_lig = (x_hat - ligand_denoised) / th * w
+                    d_guided = d_cur * (1.0 - w) + d_lig
+                    d_cur = _where_systems(use_conf | use_ff, d_guided, d_cur)
 
-        eta = step_scale_eta if churn else ode_step_scale_eta
-        x_next = x_hat + eta * (t_next - t_hat)[..., None, None] * d_cur
-        if return_trajectory:
-            traj.append(x_next)
+            eta = step_scale_eta if churn else ode_step_scale_eta
+            x_next = x_hat + eta * (t_next - t_hat)[..., None, None] * d_cur
+            if return_trajectory:
+                traj.append(x_next)
     return torch.stack(traj, dim=1) if return_trajectory else x_next

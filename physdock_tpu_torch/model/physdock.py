@@ -32,6 +32,7 @@ from physdock_tpu_torch.utils.geometry import (
     apply_centre_augmentation,
     uniform_random_rotation,
 )
+from physdock_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -75,9 +76,11 @@ class PhysDock(nn.Module):
             self.confidence_module = ConfidenceModule(
                 c.c_s, c.c_a, c.c_ap, c.c_z, c.no_blocks_heads, c.no_blocks_atom, **skw)
 
+    @span("physdock.trunk")
     def conditioning(self, batch: Batch):
         return self.diffusion_conditioning(prepare_batch(batch))
 
+    @span("physdock.denoise")
     def denoise(self, batch: Batch, x_hat, t_hat, a, ap, s, z, bias_cache=None):
         batch = prepare_batch(batch)
         return self.dit(x_hat, t_hat, a, ap, s, z, batch["ap_mask"], batch["z_mask"],
@@ -119,7 +122,8 @@ class PhysDock(nn.Module):
 
     def forward_noised(self, batch: Batch, x_hat, t_hat) -> Dict[str, torch.Tensor]:
         batch = prepare_batch(batch)
-        a, ap, s, z = self.diffusion_conditioning(batch)
+        with span("physdock.trunk"):
+            a, ap, s, z = self.diffusion_conditioning(batch)
         x_denoised = self.denoise(batch, x_hat, t_hat, a, ap, s, z)
         # the mini-rollout reuses the conditioning, so the trunk runs once per step
         return {"x_denoised": x_denoised, "x_hat": x_hat, "t_hat": t_hat,

@@ -22,6 +22,7 @@ from physdock_tpu_torch.nn.transformers import (
     segment_mean_pool,
 )
 from physdock_tpu_torch.utils.geometry import one_hot_nearest
+from physdock_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -183,12 +184,15 @@ class TokenEmbedder(nn.Module):
             if r:
                 s_in = s0 + self.recycle_linear_s(self.recycle_norm_s(s_out.detach()))
                 z_in = z0 + self.recycle_linear_z(self.recycle_norm_z(z_out.detach()))
-            m = self.linear_msa_feat(msa) + self.linear_s_input(s_in)
-            m, z = self.evoformer(m, z_in, z_mask)
-            z = z + self.template_pair_embedder(
-                z, batch["templ_feat"], batch["asym_id"], batch["t_mask"], z_mask)
-            s = self.linear_m(m[0]) + self.linear_s(s_in)
-            s_out, z_out = self.pairformer(s, z, z_mask)
+            with span("physdock.trunk.msa"):
+                m = self.linear_msa_feat(msa) + self.linear_s_input(s_in)
+                m, z = self.evoformer(m, z_in, z_mask)
+            with span("physdock.trunk.templates"):
+                z = z + self.template_pair_embedder(
+                    z, batch["templ_feat"], batch["asym_id"], batch["t_mask"], z_mask)
+            with span("physdock.trunk.pairformer"):
+                s = self.linear_m(m[0]) + self.linear_s(s_in)
+                s_out, z_out = self.pairformer(s, z, z_mask)
         return s_out, z_out
 
 
@@ -212,8 +216,9 @@ class DiffusionConditioning(nn.Module):
 
     def forward(self, batch: Batch):
         tok = batch["atom_id_to_token_id"]
-        a, ap = self.atom_embedder(batch["ref_feat"], batch["ref_pos"], batch["ref_space_uid"],
-                                   batch["ap_mask"])
+        with span("physdock.trunk.atoms"):
+            a, ap = self.atom_embedder(batch["ref_feat"], batch["ref_pos"],
+                                       batch["ref_space_uid"], batch["ap_mask"])
         s, z = self.token_embedder(batch, a)
         a = a + torch.index_select(self.linear_s(self.norm_s(s)), -2, tok)
         zp = self.linear_z(self.norm_z(z))

@@ -42,6 +42,7 @@ from physdock_tpu_torch.nn.primitives import (
 )
 from physdock_tpu_torch.parallel.tp import current_tp_mesh, replicate, shard_rows, use_tp
 from physdock_tpu_torch.utils.geometry import take_rows
+from physdock_tpu_torch.utils.profiling import span
 
 
 def _res(x, delta):
@@ -321,6 +322,7 @@ class AF3DiT(nn.Module):
         self.norm_r = LayerNorm(c_a, eps=eps, dtype=dtype)
         self.linear_r = Linear(c_a, 3, bias=False, **kw)
 
+    @span("physdock.bias_cache")
     def compute_bias_cache(self, ap, z, ap_mask, z_mask) -> Dict[str, torch.Tensor]:
         return {
             "atom_enc": self.atom_dit_encoder.compute_bias(ap, ap_mask),
@@ -341,12 +343,16 @@ class AF3DiT(nn.Module):
         ba = self.linear_x((x_hat * c_in).to(self.dtype)) + a[None].to(self.dtype)
         t = self.time_embedder(t_hat * c_noise)
 
-        ba = self.atom_dit_encoder(ba, t, bias_cache["atom_enc"])
-        pooled = segment_mean_pool(F.silu(self.linear_downscale(ba)), token_id_to_chunk_sizes)
-        bs = pooled + s[None].to(pooled.dtype)
-        bs = self.token_dit(bs, t, bias_cache["token"])
-        ba = ba + take_rows(self.linear_upscale(bs), atom_id_to_token_id).float()
-        ba = self.atom_dit_decoder(ba, t, bias_cache["atom_dec"])
+        with span("physdock.denoise.atom_encoder"):
+            ba = self.atom_dit_encoder(ba, t, bias_cache["atom_enc"])
+        with span("physdock.denoise.token_dit"):
+            pooled = segment_mean_pool(F.silu(self.linear_downscale(ba)),
+                                       token_id_to_chunk_sizes)
+            bs = pooled + s[None].to(pooled.dtype)
+            bs = self.token_dit(bs, t, bias_cache["token"])
+            ba = ba + take_rows(self.linear_upscale(bs), atom_id_to_token_id).float()
+        with span("physdock.denoise.atom_decoder"):
+            ba = self.atom_dit_decoder(ba, t, bias_cache["atom_dec"])
 
         r = self.linear_r(self.norm_r(ba)).float()
         c_skip = (sd**2 / (sd**2 + t_hat**2))[..., None, None]

@@ -21,6 +21,7 @@ import numpy as np
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
 from physdock_tpu_torch.data.synthetic import pad_batch
 from physdock_tpu_torch.utils.io import find_files, load_json
+from physdock_tpu_torch.utils.profiling import span
 
 
 class WeightedSystemSampler:
@@ -70,26 +71,26 @@ def batch_iterator(
 
     it = iter(sampler)
     while True:
-        systems = []
-        while len(systems) < batch_size:
-            path = next(it)
-            for _ in range(max_retries):
-                try:
-                    feats, _ = featurizer.load(path)
-                    feats = {k: v for k, v in feats.items() if k in FEATURE_SCHEMA}
-                    feats = pad_batch(feats, crop_size, atom_crop_size)
-                    systems.append(feats)
-                    break
-                except Exception as e:
-                    sampler.retries += 1
-                    print(f"sampler: featurizing {path} failed ({type(e).__name__}: {e}); "
-                          f"retry {sampler.retries} on another system", flush=True)
-                    path = next(it)
-            else:
-                raise RuntimeError("too many featurization failures")
-        yield {
-            k: np.stack([s[k] for s in systems]) for k in systems[0]
-        }
+        with span("physdock.train.batch"):
+            systems = []
+            while len(systems) < batch_size:
+                path = next(it)
+                for _ in range(max_retries):
+                    try:
+                        feats, _ = featurizer.load(path)
+                        feats = {k: v for k, v in feats.items() if k in FEATURE_SCHEMA}
+                        feats = pad_batch(feats, crop_size, atom_crop_size)
+                        systems.append(feats)
+                        break
+                    except Exception as e:
+                        sampler.retries += 1
+                        print(f"sampler: featurizing {path} failed ({type(e).__name__}: {e}); "
+                              f"retry {sampler.retries} on another system", flush=True)
+                        path = next(it)
+                else:
+                    raise RuntimeError("too many featurization failures")
+            batch = {k: np.stack([s[k] for s in systems]) for k in systems[0]}
+        yield batch
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

@@ -59,6 +59,7 @@ from physdock_tpu_torch.train import draws as keyed
 from physdock_tpu_torch.train.corrupt import corrupt_pose_draws, corrupt_pose_from_draws
 from physdock_tpu_torch.train.optim import AdamState, Optimizer, clip_by_norm, ema_update
 from physdock_tpu_torch.utils.geometry import take_rows, uniform_random_rotation
+from physdock_tpu_torch.utils.profiling import span
 
 Tree = Dict[str, torch.Tensor]
 
@@ -157,10 +158,12 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                                          mini_rollout_steps)
         return d
 
+    @span("physdock.train.forward")
     def loss_fn(micro: Tree, d: Dict):
         if not use_mini_rollout:
             out = forward_noised(micro, d["x_hat"], d["t_hat"])
-            return physdock_loss(out, micro, loss_cfg, sigma_data=sigma_data)
+            with span("physdock.train.forward.loss"):
+                return physdock_loss(out, micro, loss_cfg, sigma_data=sigma_data)
         out = model.forward_noised(micro, d["x_hat"], d["t_hat"])
         a, ap, s, z = out.pop("conditioning")
         if corrupt_rollout_pose:
@@ -179,8 +182,11 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
                     noise_override=d["rollout"])
         p_pae, p_pde, p_plddt = model.confidence(micro, s, z, x_pred)
         out.update(x_pred=x_pred, p_pae=p_pae, p_pde=p_pde, p_plddt=p_plddt)
-        return rffold_loss(out, micro, loss_cfg, sigma_data=sigma_data, use_mini_rollout=True)
+        with span("physdock.train.forward.loss"):
+            return rffold_loss(out, micro, loss_cfg, sigma_data=sigma_data,
+                               use_mini_rollout=True)
 
+    @span("physdock.train.step")
     def train_step(state: TrainState, batch: Tree, seed: Optional[int] = None,
                    draws: Optional[List[Dict]] = None):
         names = list(state.params)
@@ -193,37 +199,48 @@ def make_train_step(model, optimizer: Optimizer, loss_cfg: LossConfig,
         elif seed is None:
             raise ValueError("train_step needs the run's seed or the draws")
         else:
-            draws = [draw_system(m, seed, state.step, first + i) for i, m in enumerate(micros)]
+            with span("physdock.train.draw"):
+                draws = [draw_system(m, seed, state.step, first + i)
+                         for i, m in enumerate(micros)]
         grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in state.params.items()}
         logs_sum: Dict[str, torch.Tensor] = {}
         for i, micro in enumerate(micros):
             with use_tp(mesh):
                 loss, logs = loss_fn(micro, draws[i])
-                g = torch.autograd.grad(loss, leaves, allow_unused=True)
-            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-            reduce_grads(g, mesh)
-            clipped = clip_by_norm(dict(zip(names, g)), per_replica_clip)
-            torch._foreach_add_([grads[n] for n in names], [clipped[n].float() for n in names])
-            for k, v in logs.items():
-                logs_sum[k] = logs_sum.get(k, 0.0) + v.detach().float()
-        keys = list(logs_sum)
-        if mesh is not None and mesh.dp_group is not None:
-            # one flat fp32 all-reduce of the gradients and the logs
-            flat = torch.cat([grads[n].reshape(-1) for n in names]
-                             + [logs_sum[k].reshape(1) for k in keys])
-            all_reduce_(flat, mesh.dp_group)
-            parts = torch.split(flat, [grads[n].numel() for n in names] + [1] * len(keys))
-            for n, part in zip(names, parts):
-                grads[n].copy_(part.view_as(grads[n]))
-            logs_sum = {k: part[0] for k, part in zip(keys, parts[len(names):])}
-        total = n_local * dp
-        torch._foreach_div_(list(grads.values()), total)
-        updates, opt_state = optimizer.update(grads, state.opt_state)
-        with torch.no_grad():
-            torch._foreach_add_([state.params[n] for n in names], [updates[n] for n in names])
-        ema_update(state.ema_params, state.params, ema_decay)
-        state = dataclasses.replace(state, step=state.step + 1, opt_state=opt_state)
-        return state, {k: float(logs_sum[k]) / total for k in keys}
+                with span("physdock.train.backward"):
+                    g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with span("physdock.train.clip"):
+                g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
+                reduce_grads(g, mesh)
+                clipped = clip_by_norm(dict(zip(names, g)), per_replica_clip)
+                torch._foreach_add_([grads[n] for n in names],
+                                    [clipped[n].float() for n in names])
+                for k, v in logs.items():
+                    logs_sum[k] = logs_sum.get(k, 0.0) + v.detach().float()
+        with span("physdock.train.update"):
+            keys = list(logs_sum)
+            if mesh is not None and mesh.dp_group is not None:
+                # one flat fp32 all-reduce of the gradients and the logs
+                flat = torch.cat([grads[n].reshape(-1) for n in names]
+                                 + [logs_sum[k].reshape(1) for k in keys])
+                all_reduce_(flat, mesh.dp_group)
+                parts = torch.split(flat, [grads[n].numel() for n in names] + [1] * len(keys))
+                for n, part in zip(names, parts):
+                    grads[n].copy_(part.view_as(grads[n]))
+                logs_sum = {k: part[0] for k, part in zip(keys, parts[len(names):])}
+            total = n_local * dp
+            torch._foreach_div_(list(grads.values()), total)
+            with span("physdock.train.update.adam"):
+                updates, opt_state = optimizer.update(grads, state.opt_state)
+            with torch.no_grad():
+                torch._foreach_add_([state.params[n] for n in names],
+                                    [updates[n] for n in names])
+            with span("physdock.train.update.ema"):
+                ema_update(state.ema_params, state.params, ema_decay)
+            state = dataclasses.replace(state, step=state.step + 1, opt_state=opt_state)
+            with span("physdock.train.update.logs"):
+                logs = {k: float(logs_sum[k]) / total for k in keys}
+        return state, logs
 
     # the pieces, for callers that want one system's loss and gradient alone
     train_step.draw_system = draw_system

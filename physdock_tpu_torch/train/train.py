@@ -56,6 +56,7 @@ from physdock_tpu_torch.train.metrics import MetricsLogger
 from physdock_tpu_torch.train.optim import make_optimizer
 from physdock_tpu_torch.train.sampler import WeightedSystemSampler, batch_iterator, prefetch
 from physdock_tpu_torch.train.step import init_train_state, make_train_step
+from physdock_tpu_torch.utils.profiling import device_trace
 
 
 def parse_args(argv=None):
@@ -100,6 +101,10 @@ def parse_args(argv=None):
                         "per host")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--trace_dir", default=None,
+                   help="write a torch.profiler trace of the training loop to DIR/trace.json "
+                        "(Perfetto; rank 0): host and card activity with the program's "
+                        "physdock.* spans")
     return p.parse_args(argv)
 
 
@@ -157,29 +162,31 @@ def main(argv=None):
     summary = {"device": str(device), "start_step": state.step, "steps": [], "logs": [],
                "step_seconds": [], "wait_seconds": [], "checkpoints": []}
     try:
-        while state.step < args.total_steps:
-            t0 = time.time()
-            batch = arrays_to_device(next(batches), device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t_wait = time.time() - t0
-            state, logs = train_step(state, batch, args.seed)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.time() - t0
-            summary["steps"].append(state.step)
-            summary["logs"].append(logs)
-            summary["step_seconds"].append(dt)
-            summary["wait_seconds"].append(t_wait)
-            if not writer:
-                continue
-            metrics.log(state.step, logs)
-            if state.step % 10 == 0 or state.step == args.total_steps:
-                print(f"step {state.step} loss {logs['loss']:.4f} ({dt:.2f}s) {logs}", flush=True)
-            if state.step % args.save_every == 0:
-                path = ckpt_lib.save_train_state(args.ckpt_dir, state, args.keep_ckpts)
-                summary["checkpoints"].append(path)
-                print(f"checkpoint: {path}", flush=True)
+        with device_trace(args.trace_dir if writer else None):
+            while state.step < args.total_steps:
+                t0 = time.time()
+                batch = arrays_to_device(next(batches), device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_wait = time.time() - t0
+                state, logs = train_step(state, batch, args.seed)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                dt = time.time() - t0
+                summary["steps"].append(state.step)
+                summary["logs"].append(logs)
+                summary["step_seconds"].append(dt)
+                summary["wait_seconds"].append(t_wait)
+                if not writer:
+                    continue
+                metrics.log(state.step, logs)
+                if state.step % 10 == 0 or state.step == args.total_steps:
+                    print(f"step {state.step} loss {logs['loss']:.4f} ({dt:.2f}s) {logs}",
+                          flush=True)
+                if state.step % args.save_every == 0:
+                    path = ckpt_lib.save_train_state(args.ckpt_dir, state, args.keep_ckpts)
+                    summary["checkpoints"].append(path)
+                    print(f"checkpoint: {path}", flush=True)
     finally:
         batches.close()
         if metrics is not None:

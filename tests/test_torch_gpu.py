@@ -617,6 +617,21 @@ def test_graphed_train_step_on_card_equals_eager():
     systems of different shapes (a graph each, the first one replayed
     again in step 3), every loss term and every parameter bit for bit."""
     _need_cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, eager_logs = _toy_graph_steps(False)
+        graphed, graph_logs = _toy_graph_steps(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graph_logs == eager_logs
+    assert all(math.isfinite(v) for lg in eager_logs for v in lg.values())
+    for n, p in eager.params.items():
+        assert torch.equal(p, graphed.params[n]), n
+
+
+def _toy_graph_steps(graph):
+    """3 bf16 toy steps over two systems of different shapes, graphed or
+    eager, from one init: the state and each step's logs."""
     from physdock_tpu_torch.cli.common import load_model
     from physdock_tpu_torch.config import PhysDockConfig
     from physdock_tpu_torch.train.optim import make_optimizer
@@ -625,29 +640,40 @@ def test_graphed_train_step_on_card_equals_eager():
     cfg = PhysDockConfig.named("toy", num_augmentation_sample=2, bf16=True)
     batches = [{k: v[None] for k, v in _toy_batch("cuda", seed=s, n_tokens=n, n_atoms=a).items()}
                for s, n, a in ((4, 40, 160), (5, 48, 192))]
+    model = load_model(NPZ, cfg).to("cuda")
+    opt = make_optimizer()
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data,
+                           cuda_graph=graph)
+    logs = []
+    for i in range(3):
+        state, lg = step(state, batches[i % 2], 0)
+        logs.append(lg)
+    return state, logs
 
-    def run(graph):
-        model = load_model(NPZ, cfg).to("cuda")
-        opt = make_optimizer()
-        state = init_train_state(model, opt)
-        step = make_train_step(model, opt, cfg.loss, sigma_data=cfg.model.sigma_data,
-                               cuda_graph=graph)
-        logs = []
-        for i in range(3):
-            state, lg = step(state, batches[i % 2], 0)
-            logs.append(lg)
-        return state, logs
+
+@pytest.mark.gpu
+def test_graphed_train_step_under_the_profiler_equals_eager():
+    """The program's spans are host-only: the graphed toy step captured and
+    replayed while a profiler session records CPU and CUDA activity (every
+    span on) equals the eager step run without one, bit for bit under
+    deterministic algorithms, and the trace holds the step's spans."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        eager, eager_logs = run(False)
-        graphed, graph_logs = run(True)
+        eager, eager_logs = _toy_graph_steps(False)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graphed, graph_logs = _toy_graph_steps(True)
     finally:
         torch.use_deterministic_algorithms(False)
     assert graph_logs == eager_logs
-    assert all(math.isfinite(v) for lg in eager_logs for v in lg.values())
     for n, p in eager.params.items():
         assert torch.equal(p, graphed.params[n]), n
+    names = {e.name for e in prof.events()}
+    assert {"physdock.train.step", "physdock.train.forward", "physdock.train.backward",
+            "physdock.trunk", "physdock.denoise"} <= names
 
 
 @pytest.mark.gpu

@@ -1,9 +1,9 @@
 """The port's profiling and FLOP-accounting utilities
 (`physdock_tpu_torch/utils/{profiling,flops}.py`) on the CPU.
 
-  * `PhaseTimer` accumulates as the JAX package's does (same summary);
-    `device_trace` writes a Chrome trace of the block's CPU ops and is a
-    no-op without a directory; `block_and_time` gives a median.
+  * `device_trace` writes a Chrome trace of the block's CPU ops and is a
+    no-op without a directory (the program's spans:
+    `tests/test_torch_tracing.py`).
   * `estimate_dock_flops` (FlopCounterMode on the meta device): one
     attention block (fp32 and bf16) and one transition counted exactly
     against a count by hand; the toy dock at crop 32/256, 2 steps, 2 poses against the
@@ -21,32 +21,11 @@ import pytest
 import torch
 
 from physdock_tpu.utils import flops as jflops
-from physdock_tpu.utils import profiling as jprofiling
 from physdock_tpu_torch.nn.attentions import AttentionWithPairBias
 from physdock_tpu_torch.nn.primitives import Transition
 from physdock_tpu_torch.utils import flops, profiling
 
 RATIO_TO_JAX = 0.98039  # port / JAX at toy, crop 32/256, 2 steps, 2 poses
-
-
-def test_phase_timer_matches_jax(monkeypatch):
-    timers = []
-    for mod in (profiling, jprofiling):
-        ticks = iter([0.0, 1.5, 2.0, 2.25, 3.0, 3.5])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        t = mod.PhaseTimer()
-        with t.phase("trunk"):
-            pass
-        with t.phase("sampler"):
-            pass
-        with t.phase("trunk"):
-            pass
-        timers.append(t)
-        monkeypatch.undo()
-    port, jax_ = timers
-    assert port.totals == jax_.totals == {"trunk": 2.0, "sampler": 0.25}
-    assert port.counts == jax_.counts == {"trunk": 2, "sampler": 1}
-    assert port.summary() == jax_.summary()
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
@@ -61,13 +40,6 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiling.device_trace("") as none:
         (a @ a).sum()
     assert none is None
-
-
-def test_block_and_time_is_a_median_of_the_calls():
-    calls = []
-    t = profiling.block_and_time(lambda x: calls.append(1) or x * 2, torch.ones(3), iters=5,
-                                 warmup=2)
-    assert len(calls) == 7 and t >= 0.0
 
 
 def test_attention_block_and_transition_counted_by_hand():
