@@ -14,12 +14,15 @@ PDB/SDF and the pose-validity report `bust_report.json`
 the trunk and the sampler directly.  `dock_many` docks a list of systems:
 with the worker, the first is featurized here while the worker starts,
 then system k+1 is featurized and system k-1 post-processed in the
-worker while system k's rounds run; with `batch_size` > 1 systems
-of one MSA depth are re-padded to a common bucket and share one sampler
-pass, whose poses the worker then post-processes (so does a batched
-screen's group, when the featurizer is a worker).  Screening docks a SMILES list into one receptor, one ligand at a
-time or in groups of same-shaped ligand-systems that share one sampler
-pass (`model/diffusion.sample_diffusion_batched`); the trunk runs once
+worker while system k's rounds run; with `batch_size` > 1 every system
+is featurized before the first pass, the first here and the others side
+by side in a pool of worker processes, and systems of one MSA depth are
+re-padded to a common bucket and share one sampler pass, whose poses the
+worker's processes then post-process (so does a batched screen's
+group, when the featurizer is a worker).  Screening docks a SMILES list
+into one receptor, one ligand at a time or in groups of same-shaped
+ligand-systems that share one sampler pass
+(`model/diffusion.sample_diffusion_batched`); the trunk runs once
 per system and round.  With `enable_confidence` the confidence head
 scores every pose of a dock with the last round's (s, z), one pose at a
 time (`_confidence_scores`), into `confidence.json`, and
@@ -208,15 +211,20 @@ class DockingPipeline:
                 self.featurizer.load_here(system, **self._worker_kwargs(), **kw))
         return self._with_bank(featurize(self.featurizer, system, kw, compact=True))
 
-    def _loaded_in_order(self, systems, kw):
+    def _loaded_in_order(self, systems, kw, width: int = 1):
         """Yields each system's (feats, meta), compact, in order.  With the
-        worker, the first system is featurized here while the worker
-        process starts, and every later one goes to the worker up front: it
-        serves them in order and computes system k+1 while the caller docks
-        system k (the ~64 KB pipe bounds how far ahead it runs).  A worker
-        result carries the receive timings (header wait, payload read)
-        beside the worker's own seconds and its cache verdict."""
+        worker, the first system is featurized here while every later one
+        goes to the worker up front, dealt over `width` of its processes.
+        One process serves a caller that docks each system as it comes: it
+        computes system k+1 while the caller docks system k (the ~64 KB
+        pipe bounds how far ahead it runs).  A caller that needs every
+        system before its first pass has them featurized side by side.  A
+        worker result carries the receive timings (header wait, payload
+        read) and the index of the process that served it, beside the
+        worker's own seconds and its cache verdict."""
         rest = systems[1:] if isinstance(self.featurizer, FeaturizerWorker) else []
+        if rest:
+            self.featurizer.start(width)
         for sysp in rest:
             self.featurizer.submit(sysp, **self._worker_kwargs(), **kw)
         for i, sysp in enumerate(systems):
@@ -345,19 +353,34 @@ class DockingPipeline:
     def _dock_many_batched(self, systems, output_root: str, kw: Dict, *, remove_ligand: bool,
                            smi: Optional[str], write_outputs: bool, batch_size: int,
                            results: List[Dict]) -> List[Dict]:
-        """Batched dock_many: load everything (in this process: nothing
-        docks meanwhile for the worker to overlap), group by MSA depth (rows
+        """Batched dock_many: load everything before the first pass (the
+        first system here, the others side by side in the worker's
+        processes: nothing docks meanwhile), group by MSA depth (rows
         cannot be padded without a row mask), re-pad each chunk of <=
         batch_size to its largest token and atom count and dock it in one
         sampler pass per round (`_run_group_batched`); a chunk whose
-        guidance cannot be built docks one system at a time."""
+        guidance cannot be built docks one system at a time.  Each
+        result's timings give `load_fanout`, the processes that featurized
+        the call's systems, and `load_overlap`, the loads' own seconds over
+        the seconds this process waited for them."""
         t_start = time.time()
+        width = max(1, len(systems) - 1)  # the first system loads here
         if self._post_in_worker():
-            self.featurizer.start()  # its start overlaps the loads and rounds
+            self.featurizer.start(width)  # its start overlaps the loads and rounds
         groups: Dict[int, list] = {}
-        for sysp in systems:
-            feats, meta = self._load(sysp, **kw)
+        own = waited = 0.0
+        served = set()
+        t0 = time.perf_counter()
+        for feats, meta in self._loaded_in_order(systems, kw, width):
+            wait = time.perf_counter() - t0
+            detail = meta.get("_recv_detail") or {}
+            own += detail.get("worker_s", wait)
+            served.add(detail.get("worker", "here"))
+            waited += wait
             groups.setdefault(np.shape(feats["msa_tok_c"])[0], []).append((feats, meta))
+            t0 = time.perf_counter()
+        load_stats = {"load_fanout": len(served),
+                      "load_overlap": round(own / max(waited, 1e-9), 3)}
         ablate = self.featurizer.use_x_gt_ligand_as_ref_pos
         for group in groups.values():
             for i in range(0, len(group), batch_size):
@@ -383,6 +406,8 @@ class DockingPipeline:
                     res = [self._dock_loaded(it, out_dir, remove_ligand=remove_ligand, smi=smi,
                                              write_outputs=write_outputs, t_start=t_start)
                            for it, out_dir in zip(chunk, out_dirs)]
+                for r in res:
+                    r["timings"].update(load_stats)
                 results.extend(res)
         return results
 
@@ -755,5 +780,7 @@ class DockingPipeline:
                                   write_outputs=write_outputs, post=posts[b])
             r["vs_batch_size"] = n
             r["timings"] = dict(timings)
+            if meta.get("_recv_detail"):
+                r["timings"]["load_detail"] = meta.pop("_recv_detail")
             out.append(r)
         return out

@@ -11,11 +11,19 @@ tests/test_feat_worker.py of the JAX package):
   * the worker's code run in process (`load_here`) equals the worker's
     load and shares its disk cache; the process starts at the first
     submit, never for `load_here`;
+  * the worker as a pool of 1 and 3 processes: its loads equal
+    `load_here`'s bit for bit (features, per-round MSA, conformer bank)
+    and come back in submission order, request i from process i mod n;
+    a failing system raises in its own place and the later results still
+    pair with their systems; `stop` ends every process; the pool's size
+    leaves two cores to the card's process;
   * `dock_many` through the worker equals sequential `dock` (rank order
     equal, top-5 RMSD within 1e-4 A): the first system featurized in
     process, the second by the worker (its receive timings in the
     result), the post-processing of both done in the worker;
-    `batch_size=2` gives well-formed results from one sampler pass;
+    `batch_size=2` gives well-formed results from one sampler pass, with
+    the loads' fan-out and overlap in its timings; `batch_size=4` through
+    the pool gives the poses of in-process loads;
   * `_dock_many_batched`'s group (2 systems re-padded to one bucket, with
     the GT-conformer ablation's `gt_ligs`) equals bit for bit what the JAX
     package's `_dock_many_batched` builds from the same files, and each
@@ -37,6 +45,7 @@ import torch
 from physdock_tpu_torch.cli import redocking
 from physdock_tpu_torch.cli.common import load_model
 from physdock_tpu_torch.config import PhysDockConfig
+from physdock_tpu_torch.data import feat_worker
 from physdock_tpu_torch.data.feat_worker import FeaturizerWorker
 from physdock_tpu_torch.data.feature_loader import SystemFeaturizer
 from physdock_tpu_torch.infer.pipeline import DockingPipeline, SamplerSettings
@@ -46,6 +55,8 @@ DEMO = os.path.join(REPO, "demo", "redocking")
 SYSTEMS = os.path.join(DEMO, "Posebusters_subset")
 PKL = os.path.join(SYSTEMS, "5SAK_ZRY_A_1.pkl.gz")
 PKL2 = os.path.join(SYSTEMS, "5SD5_HWI_A_1.pkl.gz")
+PKL3 = os.path.join(SYSTEMS, "5SB2_1K2_A_1.pkl.gz")
+PKL4 = os.path.join(SYSTEMS, "5SIS_JSM_A_1.pkl.gz")
 NPZ = os.path.join(REPO, "_overfit", "ema_params.npz")
 FZ = dict(msa_features_dir=f"{DEMO}/features/msa_features",
           uniprot_msa_features_dir=f"{DEMO}/features/uniprot_msa_features",
@@ -137,7 +148,7 @@ def test_abandoned_request_never_pairs_with_wrong_system(cfg):
         assert m["system_id"] == "5SD5_HWI_A_1"
     finally:
         w.stop()
-    assert w.proc.poll() is not None
+    assert all(p.popen.poll() is not None for p in w.procs)
 
 
 def test_feat_cache_hit_matches_cold(cfg, tmp_path):
@@ -164,7 +175,7 @@ def test_load_here_matches_the_worker_and_shares_its_cache(cfg, tmp_path):
     try:
         kw = dict(num_msa_rounds=2, num_confs=4, compact=True)
         f_here, m_here, c_here = w.load_here(PKL2, **kw)
-        assert w.proc is None  # no process for a load in process
+        assert not w.procs  # no process for a load in process
         assert "_feat_cache" not in m_here
         f_wk, m_wk, c_wk = w.load(PKL2, **kw)
         assert m_wk["_feat_cache"] == "hit"  # the entry load_here wrote
@@ -239,6 +250,9 @@ def test_dock_many_batched(cfg, model, worker, tmp_path, featurizer, monkeypatch
         assert r["vs_batch_size"] == 2 and r["num_poses"] == 2
         assert all(np.isfinite(v) for v in r["top5_rmsd"])
         assert (tmp_path / r["system_id"] / "bust_report.json").exists()
+        # the first system loads here; the worker's one process the second
+        assert r["timings"]["load_fanout"] == (2 if featurizer == "worker" else 1)
+        assert r["timings"]["load_overlap"] > 0
 
 
 def test_batched_screen_post_processes_in_the_worker(cfg, model, worker, tmp_path, monkeypatch):
@@ -277,6 +291,123 @@ def test_batched_screen_post_processes_in_the_worker(cfg, model, worker, tmp_pat
         for f in ("pred_rank0.pdb", "ligand_rank0.sdf", "ligand_rank1.sdf"):
             assert ((tmp_path / "worker" / str(i) / f).read_bytes()
                     == (tmp_path / "inline" / str(i) / f).read_bytes()), f
+
+
+LOAD_KW = dict(num_msa_rounds=2, num_confs=4, conf_seed=0, compact=True)
+
+
+def _assert_same_load(got, want):
+    (f, m, c), (fw, mw, cw) = got, want
+    assert m["system_id"] == mw["system_id"] and set(f) == set(fw)
+    for k in fw:
+        np.testing.assert_array_equal(f[k], fw[k], err_msg=k)
+        assert f[k].dtype == fw[k].dtype, k
+    np.testing.assert_array_equal(m["ligand_atom_idx"], mw["ligand_atom_idx"])
+    assert len(m["batch_msa_feat_c"]) == len(mw["batch_msa_feat_c"])
+    for a, b in zip(m["batch_msa_feat_c"], mw["batch_msa_feat_c"]):
+        assert set(a) == set(b)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(c, cw)
+
+
+@pytest.fixture
+def pool_of(cfg, monkeypatch):
+    """A FeaturizerWorker whose `start(n)` runs n processes, whatever the
+    host's cores (`pool_size` is tested on its own)."""
+    monkeypatch.setattr(feat_worker, "pool_size", lambda wanted: wanted)
+    made = []
+
+    def make(n):
+        w = FeaturizerWorker(cfg.data, **FZ)
+        w.start(n)
+        made.append(w)
+        return w
+
+    yield make
+    for w in made:
+        w.stop()
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pool_loads_equal_in_process_loads_in_order(pool_of, n):
+    w = pool_of(n)
+    systems = [PKL, PKL2, PKL3, PKL4, PKL2]
+    for s in systems:
+        w.submit(s, **LOAD_KW)
+    for i, s in enumerate(systems):
+        got = w.result()
+        assert w.last_recv["worker"] == i % n and w.last_recv["mb"] > 0
+        _assert_same_load(got, w.load_here(s, **LOAD_KW))
+    assert len(w.procs) == n and all(p.popen.poll() is None for p in w.procs)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pool_failing_load_raises_in_its_place(pool_of, n):
+    w = pool_of(n)
+    systems = [PKL, "/nonexistent/system.pkl.gz", PKL2, PKL3]
+    for s in systems:
+        w.submit(s, num_msa_rounds=1, compact=True)
+    got = []
+    for s in systems:
+        try:
+            got.append(w.result()[1]["system_id"])
+        except RuntimeError as e:
+            assert "featurizer worker failed" in str(e) and "nonexistent" in str(e)
+            got.append(None)
+    assert got == ["5SAK_ZRY_A_1", None, "5SD5_HWI_A_1", "5SB2_1K2_A_1"]
+    with pytest.raises(RuntimeError, match="no pending request"):
+        w.result()
+    # the pool goes on serving, in order, from every process
+    for s in (PKL3, PKL):
+        w.submit(s, num_msa_rounds=1, compact=True)
+    assert [w.result()[1]["system_id"] for _ in range(2)] == ["5SB2_1K2_A_1", "5SAK_ZRY_A_1"]
+
+
+def test_pool_stop_ends_every_process(pool_of):
+    w = pool_of(3)
+    w.submit(PKL, num_msa_rounds=1, compact=True)
+    w.submit(PKL2, num_msa_rounds=1, compact=True)  # left undrained
+    assert w.result()[1]["system_id"] == "5SAK_ZRY_A_1"
+    procs = [p.popen for p in w.procs]
+    assert len(procs) == 3 and all(p.poll() is None for p in procs)
+    w.stop()
+    assert all(p.poll() is not None for p in procs)
+    with pytest.raises(RuntimeError, match="no pending request"):
+        w.result()
+    # a later call starts the processes anew
+    w.start(2)
+    assert w.load(PKL2, num_msa_rounds=1, compact=True)[1]["system_id"] == "5SD5_HWI_A_1"
+    assert [p.popen.poll() is None for p in w.procs[:2]] == [True, True]
+
+
+@pytest.mark.parametrize("cores,wanted,size", [(8, 3, 3), (8, 1, 1), (8, 10, 6), (4, 3, 2),
+                                               (2, 3, 1), (1, 3, 1)])
+def test_pool_size_leaves_two_cores(monkeypatch, cores, wanted, size):
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(cores)))
+    assert feat_worker.pool_size(wanted) == size
+
+
+def test_dock_many_batched_through_the_pool_equals_in_process_loads(cfg, model, pool_of,
+                                                                     tmp_path):
+    systems = [PKL3, PKL, PKL2]
+    settings = _settings(max_rounds=2)
+    w = pool_of(1)
+    res = {}
+    for name, fz in (("inline", SystemFeaturizer(cfg.data, **FZ)), ("pool", w)):
+        pipe = DockingPipeline(cfg, model, fz, settings, device="cpu")
+        res[name] = pipe.dock_many(systems, str(tmp_path / name), batch_size=4)
+    assert len(w.procs) == 2  # the call's two systems beyond the first, side by side
+    for a, b in zip(res["pool"], res["inline"]):
+        assert a["system_id"] == b["system_id"] and a["rounds"] == b["rounds"]
+        assert a["rank_order"] == b["rank_order"] and a["all_rmsd"] == b["all_rmsd"]
+        assert a["timings"]["load_fanout"] == 3 and b["timings"]["load_fanout"] == 1
+        assert a["timings"]["load_overlap"] > 0 and b["timings"]["load_overlap"] > 0
+        for f in ("pred_rank0.pdb", "ligand_rank0.sdf", "bust_report.json"):
+            assert ((tmp_path / "pool" / a["system_id"] / f).read_bytes()
+                    == (tmp_path / "inline" / a["system_id"] / f).read_bytes()), f
+    details = [r["timings"].get("load_detail") for r in res["pool"]]
+    assert sorted(d["worker"] for d in details if d) == [0, 1]
 
 
 def _captured_group(pipe, monkeypatch, dock_many):

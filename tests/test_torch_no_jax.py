@@ -319,10 +319,10 @@ def test_entry_points_never_fall_back_to_the_cpu(tmp_path):
     try:
         _, meta, _ = w.load(pkl, num_msa_rounds=1)
         assert meta["system_id"]
-        with open(f"/proc/{w.proc.pid}/environ", "rb") as f:
+        with open(f"/proc/{w.procs[0].popen.pid}/environ", "rb") as f:
             env = f.read().split(b"\0")
         assert b"CUDA_VISIBLE_DEVICES=" in env
-        with open(f"/proc/{w.proc.pid}/maps") as f:
+        with open(f"/proc/{w.procs[0].popen.pid}/maps") as f:
             assert "libcuda.so" not in f.read()
     finally:
         w.stop()
